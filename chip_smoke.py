@@ -1,0 +1,398 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (peng_motif_tpu_torch) on one CUDA
+card.
+
+    python3 chip_smoke.py
+
+Phases, each of which asserts (any failure exits non-zero; nothing is
+caught):
+
+  1. device  — the card's name and power limit (nvidia-smi) and torch's
+               device name;
+  2. build   — the histogram kernel (nvcc, sm_90a) and the native host
+               library (g++), from the sources in this checkout;
+  3. kernel  — the histogram kernel against its plain PyTorch version
+               (torch.bincount), bit-identical, at ~50M ids for six table
+               sizes and on four edge inputs, both timed with CUDA events;
+  4. golden  — the port's CLI with --device cuda on the golden MafK
+               inputs (-w 8, -w 10) against the reference's MEME files
+               (5e-6 absolute + 1e-6 relative, identical structure);
+  5. scale   — the 51.2-Mbase corpus (25,000 x 2,048 bp, seed 7) through
+               the CLI at -w 10, with the kernel and with the plain
+               histogram swapped in, in turns (kernel, plain, plain,
+               kernel): identical count table, ltot, background counts and
+               MEME bytes; the same for the count phase alone at -w 12.
+               The kernel is also checked and timed on the exact inputs
+               the main path handed it.
+
+The last two lines are the kernels' JSON record and the run's result,
+``{"ok": true, "device": {...}}``.  Without a CUDA device the script
+exits non-zero before any phase.
+"""
+
+import contextlib
+import io
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+import types
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+GOLDEN = os.path.join(REPO, "tests", "golden")
+KERNEL_SOURCE = "peng_motif_tpu_torch/csrc/histogram.cu"
+KERNEL_REPLACES = "peng_motif_tpu/ops/pallas_hist.py:261"
+TOL_ABS, TOL_REL = 5e-6, 1e-6
+
+
+@contextlib.contextmanager
+def phase(name):
+    print(f"[phase] {name} ...", flush=True)
+    t0 = time.perf_counter()
+    yield
+    print(f"[phase] {name} done in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+
+
+def within_tolerance(got: str, want: str) -> bool:
+    """Identical line/token structure; numeric tokens within
+    TOL_ABS + TOL_REL * |want|."""
+    a_lines, b_lines = got.splitlines(), want.splitlines()
+    if len(a_lines) != len(b_lines):
+        return False
+    for a, b in zip(a_lines, b_lines):
+        ta, tb = a.split(), b.split()
+        if len(ta) != len(tb):
+            return False
+        for x, y in zip(ta, tb):
+            if x == y:
+                continue
+            try:
+                fx, fy = float(x), float(y)
+            except ValueError:
+                return False
+            if abs(fx - fy) > TOL_ABS + TOL_REL * abs(fy):
+                return False
+    return True
+
+
+def run_cli(argv):
+    """The port's CLI in-process; stdout (the climb log) is discarded.
+    Returns the wall time in seconds."""
+    from peng_motif_tpu_torch.cli import main
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = main(argv)
+    wall = time.perf_counter() - t0
+    assert rc == 0, f"CLI exited {rc}: {argv}"
+    return wall
+
+
+def time_pair(ids, inc, n_bins, reps=10):
+    """(kernel ms, plain ms, bit-identical) on one input, alternating
+    kernel and plain blocks after a warm-up."""
+    import torch
+
+    from peng_motif_tpu_torch.ops import histogram as H
+
+    fns = {"kernel": H.histogram, "plain": H.histogram_plain}
+    outs = {k: fn(ids, inc, n_bins) for k, fn in fns.items()}
+    torch.cuda.synchronize()
+    same = torch.equal(outs["kernel"], outs["plain"])
+    err = int((outs["kernel"].long() - outs["plain"].long()).abs().max())
+    total = {"kernel": 0.0, "plain": 0.0}
+    for order in (("kernel", "plain"), ("plain", "kernel")):
+        for k in order:
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                fns[k](ids, inc, n_bins)
+            stop.record()
+            torch.cuda.synchronize()
+            total[k] += start.elapsed_time(stop)
+    return total["kernel"] / (2 * reps), total["plain"] / (2 * reps), same, err
+
+
+def write_large_corpus(path):
+    """The reference bench's 51.2-Mbase corpus (bench.py _gen_large):
+    25,000 x 2,048 bp, seed 7, ~30% of sequences carrying one planted
+    TGA[C/G]TCAC."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    let = np.frombuffer(b"ACGT", dtype=np.uint8)
+    n_seq, L = 25_000, 2_048
+    rows = let[rng.integers(0, 4, size=(n_seq, L))]
+    sel = rng.random(n_seq) < 0.3
+    mot_c = np.frombuffer(b"TGACTCAC", dtype=np.uint8)
+    mot_g = np.frombuffer(b"TGAGTCAC", dtype=np.uint8)
+    pos = rng.integers(0, L - 8, size=n_seq)
+    for i in np.flatnonzero(sel):
+        rows[i, pos[i] : pos[i] + 8] = mot_c if (i & 1) else mot_g
+    with open(path, "wb") as f:
+        for i in range(n_seq):
+            f.write(b">s%d\n" % i)
+            f.write(rows[i].tobytes())
+            f.write(b"\n")
+    return n_seq * L
+
+
+class Recorder:
+    """Wraps the engine's count phase, background delivery and the
+    stream count's histogram to keep what one run computed: the exact
+    count table and ltot, the background counts, the count-phase wall,
+    and the first input of each table size handed to the histogram."""
+
+    def __init__(self, plain=False):
+        self.plain = plain
+
+    @contextlib.contextmanager
+    def active(self):
+        from peng_motif_tpu_torch import engine
+        from peng_motif_tpu_torch.ops import histogram as H
+        from peng_motif_tpu_torch.ops import stream_count
+
+        self.counts = self.ltot = self.bg = None
+        self.count_s = 0.0
+        self.inputs = {}
+        real_phase, real_deliver = engine._count_phase, engine._deliver_bg
+        real_hist = stream_count.histogram
+        hist = H.histogram_plain if self.plain else real_hist
+
+        def count_phase(*a, **k):
+            t0 = time.perf_counter()
+            self.counts, self.ltot = real_phase(*a, **k)
+            self.count_s += time.perf_counter() - t0
+            return self.counts, self.ltot
+
+        def deliver(bgm, bg_words, bg_corr):
+            real_deliver(bgm, bg_words, bg_corr)
+            self.bg = [n.copy() for n in bgm.n]
+
+        def histogram(ids, inc, n_bins):
+            if n_bins not in self.inputs:
+                self.inputs[n_bins] = (ids.clone(), inc.clone())
+            return hist(ids, inc, n_bins)
+
+        engine._count_phase, engine._deliver_bg = count_phase, deliver
+        stream_count.histogram = histogram
+        try:
+            yield self
+        finally:
+            engine._count_phase, engine._deliver_bg = real_phase, real_deliver
+            stream_count.histogram = real_hist
+
+
+def same_record(a, b):
+    import numpy as np
+
+    return (np.array_equal(a.counts, b.counts) and a.ltot == b.ltot
+            and len(a.bg) == len(b.bg)
+            and all(np.array_equal(x, y) for x, y in zip(a.bg, b.bg)))
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this run "
+              "needs a CUDA device", file=sys.stderr)
+        return 2
+
+    import numpy as np
+
+    from peng_motif_tpu_torch import engine
+    from peng_motif_tpu_torch.device import resolve_device
+    from peng_motif_tpu_torch.io.fasta import load_sequence_set
+    from peng_motif_tpu_torch.models.background import BackgroundModel
+    from peng_motif_tpu_torch.native import get_lib
+    from peng_motif_tpu_torch.ops import histogram as H
+
+    kernel_ms = plain_ms = None
+    max_err = 0
+
+    with phase("device"):
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60)
+        card = smi.stdout.strip().splitlines()[0]
+        print(card, flush=True)  # name, power limit: as nvidia-smi gives them
+        dev = resolve_device("cuda")
+        kind = torch.cuda.get_device_name(0)
+        print(f"torch: {torch.__version__} cuda {torch.version.cuda} "
+              f"device {kind} count {torch.cuda.device_count()}", flush=True)
+
+    with phase("build"):
+        t0 = time.perf_counter()
+        H.build_kernels()
+        t1 = time.perf_counter()
+        get_lib()
+        t2 = time.perf_counter()
+        print(f"histogram kernel (nvcc sm_90a): {t1 - t0:.3f} s; native "
+              f"library (g++): {t2 - t1:.3f} s", flush=True)
+        for line in H.BUILD_LOG.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}", flush=True)
+
+    with phase("kernel vs plain, synthetic ids"):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        n = 50_000_000
+        for n_bins in (384, 4 ** 6, 4 ** 8, 4 ** 9, 4 ** 10, 4 ** 12):
+            ids = torch.randint(0, n_bins, (n,), generator=gen, device=dev,
+                                dtype=torch.int32)
+            inc = torch.rand(n, generator=gen, device=dev) < 0.8
+            k_ms, p_ms, same, err = time_pair(ids, inc, n_bins)
+            max_err = max(max_err, err)
+            print(f"  n_bins={n_bins:>9} n={n} counted=80%: kernel "
+                  f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bit-identical "
+                  f"{same}", flush=True)
+            assert same, f"kernel != plain at n_bins={n_bins}"
+            del ids, inc
+        for n_bins in (384, 4 ** 10):
+            edges = {
+                "empty": (torch.zeros(0, dtype=torch.int32, device=dev),
+                          torch.zeros(0, dtype=torch.bool, device=dev)),
+                "all masked": (
+                    torch.randint(0, n_bins, (1 << 20,), generator=gen,
+                                  device=dev, dtype=torch.int32),
+                    torch.zeros(1 << 20, dtype=torch.bool, device=dev)),
+                "one hot bin": (
+                    torch.full((1 << 20,), n_bins // 3, dtype=torch.int32,
+                               device=dev),
+                    torch.ones(1 << 20, dtype=torch.bool, device=dev)),
+                "last bin": (
+                    torch.full((1 << 20,), n_bins - 1, dtype=torch.int32,
+                               device=dev),
+                    torch.rand(1 << 20, generator=gen, device=dev) < 0.5),
+            }
+            for name, (ids, inc) in edges.items():
+                got = H.histogram(ids, inc, n_bins)
+                want = H.histogram_plain(ids, inc, n_bins)
+                torch.cuda.synchronize()
+                same = torch.equal(got, want)
+                print(f"  edge {name:>11} n_bins={n_bins}: bit-identical "
+                      f"{same}", flush=True)
+                assert same, f"kernel != plain on edge input {name}"
+
+    with phase("golden end to end (--device cuda)"):
+        cases = [("mafk_w8", "MafK.fasta", "8"),
+                 ("mafk_w10", "MafK.fasta", "10"),
+                 ("mafk100_w8", "MafK_100seqs.fasta", "8")]
+        with tempfile.TemporaryDirectory() as tmp:
+            for stem, fasta, w in cases:
+                out = os.path.join(tmp, f"{stem}.meme")
+                before = H.LAUNCHES
+                wall = run_cli([os.path.join(GOLDEN, fasta), "-w", w,
+                                "--device", "cuda", "-o", out])
+                with open(out) as f, \
+                        open(os.path.join(GOLDEN, f"{stem}.meme")) as g:
+                    got, want = f.read(), g.read()
+                ok = within_tolerance(got, want)
+                print(f"  {stem}: wall {wall:.3f} s, within tolerance {ok}, "
+                      f"byte-identical {got == want}, engine "
+                      f"{engine.LAST_ENGINE_USED}, histogram launches "
+                      f"{H.LAUNCHES - before}", flush=True)
+                assert ok, f"{stem}: MEME output outside the tolerance"
+                assert engine.LAST_ENGINE_USED == "gpu"
+                assert H.LAUNCHES > before, f"{stem}: no kernel launch"
+
+    with phase("51.2-Mbase corpus"), \
+            tempfile.TemporaryDirectory() as tmp:
+        fasta = os.path.join(tmp, "large.fasta")
+        t0 = time.perf_counter()
+        n_bases = write_large_corpus(fasta)
+        print(f"  corpus written: {n_bases} bases in "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        # kernel, plain, plain, kernel: each version's wall is the mean
+        # of its two runs; the first kernel run is the main-path run
+        memes, recs, walls = {}, {}, {"kernel": [], "plain": []}
+        launches = None
+        for label in ("kernel", "plain", "plain", "kernel"):
+            out = os.path.join(tmp, f"{label}.meme")
+            rec = Recorder(plain=label == "plain")
+            with rec.active():
+                if launches is None:
+                    H.LAUNCHES = 0  # the main-path run starts here
+                wall = run_cli([fasta, "-w", "10", "--device", "cuda",
+                                "-o", out])
+                if launches is None:
+                    launches = H.LAUNCHES
+            assert engine.LAST_ENGINE_USED == "gpu"
+            with open(out, "rb") as f:
+                meme = f.read()
+            assert memes.setdefault(label, meme) == meme
+            recs.setdefault(label, rec)
+            walls[label].append((wall, rec.count_s))
+            print(f"  w10 {label:>6} histogram: end-to-end wall {wall:.3f} "
+                  f"s, count phase {rec.count_s:.3f} s = "
+                  f"{n_bases / rec.count_s / 1e6:.2f} Mbases/s, ltot "
+                  f"{rec.ltot}", flush=True)
+        for label, runs in walls.items():
+            e2e = sum(r[0] for r in runs) / len(runs)
+            cnt = sum(r[1] for r in runs) / len(runs)
+            print(f"  w10 {label:>6} mean of 2: end-to-end {e2e:.3f} s, "
+                  f"count phase {cnt:.3f} s = {n_bases / cnt / 1e6:.2f} "
+                  f"Mbases/s", flush=True)
+        print(f"  w10 main-path histogram launches: {launches}", flush=True)
+        assert launches > 0, "the main path launched no histogram kernel"
+        assert same_record(recs["kernel"], recs["plain"]), \
+            "w10: kernel and plain count tables differ"
+        assert memes["kernel"] == memes["plain"], "w10: MEME bytes differ"
+        print("  w10 kernel vs plain: count table, ltot, background counts "
+              "and MEME bytes identical", flush=True)
+
+        # the kernel on the exact inputs the main path handed it
+        main_inputs = recs["kernel"].inputs
+        for n_bins, (ids, inc) in sorted(main_inputs.items()):
+            k_ms, p_ms, same, err = time_pair(ids, inc, n_bins)
+            max_err = max(max_err, err)
+            print(f"  main-path input n_bins={n_bins} n={ids.numel()} "
+                  f"counted={int(inc.sum())}: kernel {k_ms:.4f} ms, plain "
+                  f"{p_ms:.4f} ms, bit-identical {same}", flush=True)
+            assert same, f"kernel != plain on the main-path input {n_bins}"
+            if n_bins == 4 ** 10:
+                kernel_ms, plain_ms = k_ms, p_ms
+        assert kernel_ms is not None, "no 4**10 table in the main path"
+
+        sset = load_sequence_set(fasta)
+        recs = {}
+        # a warm-up run first: the first 4**12 count also builds the
+        # host-side id tables for that width
+        for label in ("warm-up", "kernel", "plain", "plain", "kernel"):
+            rec = Recorder(plain=label == "plain")
+            peng = types.SimpleNamespace(
+                sequence_set=sset,
+                bg_model=BackgroundModel(sset.sequences, order=2,
+                                         interpolate=True, defer=True))
+            with rec.active():
+                engine._count_phase(peng, 12, True, dev)
+            recs.setdefault(label, rec)
+            print(f"  w12 {label:>7} histogram: count phase "
+                  f"{rec.count_s:.3f} s = "
+                  f"{n_bases / rec.count_s / 1e6:.2f} Mbases/s, ltot "
+                  f"{rec.ltot}", flush=True)
+        assert same_record(recs["kernel"], recs["plain"]), \
+            "w12: kernel and plain count tables differ"
+        print("  w12 kernel vs plain: count table, ltot and background "
+              "counts identical", flush=True)
+        assert int(np.asarray(recs["kernel"].counts).sum()) > 0
+
+    print(json.dumps({"kernels": [{
+        "name": "histogram", "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": KERNEL_REPLACES, "launches": launches,
+        "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms}]}),
+        flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

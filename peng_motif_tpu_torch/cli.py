@@ -1,0 +1,395 @@
+"""Flag-compatible command-line interface.
+
+Mirrors the reference CLI surface exactly (reference:
+src/Global.cpp:77-375, src/main.cpp:18-84), including its hand-rolled
+parsing behaviors: unknown options warn and are ignored; odd pattern
+lengths are rejected with exit code 4.  The port adds ``--device``; the
+reference package's extensions that are not ported yet exit with an
+error instead of being ignored.
+"""
+
+from __future__ import annotations
+
+import sys
+
+from . import __version__
+from .device import DEVICES, DeviceUnavailable, resolve_device
+from .engine import NotPortedError
+from .io.fasta import FastaFormatError, load_sequence_set
+from .models.background import BackgroundModel
+from .output import write_json, write_meme
+from .pattern_tables import OptimizationScore, Strand
+from .pipeline import Peng, PengParameters
+from .utils.logging_utils import set_verbosity
+
+HELP = """
+=================================================================
+
+ Usage: peng_motif SEQFILE [options]
+
+\t SEQFILE: file with sequences in FASTA format.
+
+      -o, <OUTPUT_FILE>
+           best IUPAC motives will be written in OUTPUT_FILE
+           in minimal MEME format
+
+      -j, <OUTPUT_FILE>
+           best IUPAC motives will be written in OUTPUT_FILE
+           in JSON format
+
+      --background-sequences, <FASTA_FILE>
+           file with fasta sequences to be used for the
+           background model calculation
+
+      -t, <ZSCORE_THRESHOLD>
+           lower zscore threshold for basic patterns
+
+      -w, <PATTERN_LENGTH>
+           length of patterns to be searched
+
+      --bg-model-order, <BG_MODEL_ORDER>
+           order of the background model
+
+      --count-threshold, <COUNT_THRESHOLD>
+           lower threshold for counts of basic patterns
+
+      --strand, <PLUS|BOTH>
+           select the strands to work on
+
+      --optimization_score, <ENRICHMENT|LOGPVAL|MUTUAL_INFO>
+           select the iupac optimization score
+
+      --enrich_pseudocount_factor, <PSEUDO_COUNTS>
+           add (enrich_pseudocount_factor x #seqs) pseudocounts
+           in the EXPCOUNTS optimization
+
+      -b, <BIT_FACTOR_THRESHOLD>
+           bit factor threshold for merging IUPAC patterns
+
+      --no-em
+           shuts off the em optimization
+
+      -a, <EM_SATURATION_THRESHOLD>
+           saturation factor for em optimization
+
+      --em-threshold, <EM_THRESHOLD>
+           threshold for finishing the em optimization
+
+      --em-max-iterations, <EM_MAX_ITERATIONS>
+           max number of em optimization iterations
+
+      --no-merging
+           shuts off the merging
+
+      --max_merged_length
+           define the maximum length of motifs after merging
+
+      --use-default-pwm
+           use the default calculation of the pwm
+
+      --pseudo-counts, <PSEUDO_COUNTS>
+           number of pseudo-counts for optimization
+
+      --threads, <NUMBER_THREADS>
+           number of threads to be used for parallelization
+
+      --no-neighbor-filtering
+           do not filter similar base patterns before running the optimization
+
+      --minimum-processed-patterns <NUMBER_PATTERNS>
+           minimum number of iupac patterns that are selected for em optimization
+
+      --version
+           print the version number
+
+      -h
+           print this help
+
+      --max-optimized-patterns
+           maximum number of iupac patterns that are selected for pattern optimization
+
+ PyTorch/CUDA port extensions:
+
+      --device <cuda|cpu>      device of the count phase (default cuda;
+                               cuda without a CUDA device is an error)
+      --engine <auto|tpu>      both run the device engine (tpu is kept
+                               as an alias for flag compatibility)
+      --timing                 print per-phase wall-clock timings
+
+ Not yet ported (rejected with an error): --engine exact, --devices,
+ --profile, --save-checkpoint, --load-checkpoint, --num-processes,
+ --process-id, --coordinator.
+
+=================================================================
+"""
+
+
+def _need_value(args, i, flag):
+    if i + 1 >= len(args):
+        print(HELP)
+        print(f"No expression following {flag}", file=sys.stderr)
+        sys.exit(4)
+    return args[i + 1]
+
+
+# the reference package's extensions that this package does not run yet
+_NOT_PORTED = ("--devices", "--profile", "--save-checkpoint",
+               "--load-checkpoint", "--num-processes", "--process-id",
+               "--coordinator")
+
+
+def _not_ported(flag: str):
+    print(f"Error: {flag} is not yet ported to peng_motif_tpu_torch",
+          file=sys.stderr)
+    sys.exit(4)
+
+
+def parse_args(argv):
+    """Hand-rolled parse loop mirroring Global::readArguments
+    (reference: src/Global.cpp:77-314)."""
+    if len(argv) > 1 and argv[1] == "-h":
+        print(HELP)
+        sys.exit(0)
+    if len(argv) > 1 and argv[1] == "-version":
+        print(f"peng_motif version {__version__}")
+        sys.exit(0)
+    if len(argv) < 2:
+        print("Error: Arguments are missing! ", file=sys.stderr)
+        print(HELP)
+        sys.exit(-1 & 0xFF)
+
+    cfg = {
+        "input": argv[1],
+        "background_sequences": None,
+        "output": None,
+        "json": None,
+        "pattern_length": 10,
+        "zscore_threshold": 10.0,
+        "count_threshold": 3,
+        "pseudo_counts": 10,
+        "opt_score_type": OptimizationScore.MUTUAL_INFO,
+        "enrich_pseudocount_factor": 0.005,
+        "use_em": True,
+        "em_saturation_factor": 1e4,
+        "em_min_threshold": 0.08,
+        "em_max_iterations": 10,
+        "use_merging": True,
+        "bit_factor_merge_threshold": 0.4,
+        "max_merged_length": 14,
+        "adv_pwm": True,
+        "strand": Strand.BOTH_STRANDS,
+        "bg_model_order": 2,
+        "max_opt_bg_model_order": 2,
+        "filter_neighbors": True,
+        "minimum_processed_motifs": 0,
+        "max_optimized_patterns": 50,
+        "verbosity": 2,
+        "threads": 1,
+        "device": "cuda",
+        "timing": False,
+    }
+
+    i = 2
+    while i < len(argv):
+        arg = argv[i]
+        if arg == "-w":
+            cfg["pattern_length"] = int(_need_value(argv, i, arg)); i += 1
+            if cfg["pattern_length"] % 2 == 1:
+                print(
+                    "Due to optimizations the pattern length has to be a "
+                    "multiple of 2", file=sys.stderr,
+                )
+                sys.exit(4)
+        elif arg == "--background-sequences":
+            cfg["background_sequences"] = _need_value(argv, i, arg); i += 1
+        elif arg == "--optimization_score":
+            val = _need_value(argv, i, arg); i += 1
+            mapping = {
+                "LOGPVAL": OptimizationScore.LOGPVAL,
+                "ENRICHMENT": OptimizationScore.ENRICHMENT,
+                "MUTUAL_INFO": OptimizationScore.MUTUAL_INFO,
+            }
+            if val not in mapping:
+                print(HELP)
+                print("Unknown expression following --optimization_score",
+                      file=sys.stderr)
+                sys.exit(4)
+            cfg["opt_score_type"] = mapping[val]
+        elif arg == "--enrich_pseudocount_factor":
+            cfg["enrich_pseudocount_factor"] = float(_need_value(argv, i, arg)); i += 1
+        elif arg == "-v":
+            cfg["verbosity"] = int(_need_value(argv, i, arg)); i += 1
+        elif arg == "-o":
+            cfg["output"] = _need_value(argv, i, arg); i += 1
+        elif arg == "-j":
+            cfg["json"] = _need_value(argv, i, arg); i += 1
+        elif arg == "-t":
+            cfg["zscore_threshold"] = float(_need_value(argv, i, arg)); i += 1
+        elif arg == "--count-threshold":
+            cfg["count_threshold"] = int(_need_value(argv, i, arg)); i += 1
+        elif arg == "-b":
+            cfg["bit_factor_merge_threshold"] = float(_need_value(argv, i, arg)); i += 1
+        elif arg == "--use-default-pwm":
+            cfg["adv_pwm"] = False
+        elif arg == "--pseudo-counts":
+            cfg["pseudo_counts"] = int(_need_value(argv, i, arg)); i += 1
+        elif arg == "--threads":
+            cfg["threads"] = int(_need_value(argv, i, arg)); i += 1
+        elif arg == "--no-em":
+            cfg["use_em"] = False
+        elif arg == "-a":
+            cfg["em_saturation_factor"] = float(_need_value(argv, i, arg)); i += 1
+        elif arg == "--em-threshold":
+            cfg["em_min_threshold"] = float(_need_value(argv, i, arg)); i += 1
+        elif arg == "--em-max-iterations":
+            cfg["em_max_iterations"] = int(_need_value(argv, i, arg)); i += 1
+        elif arg == "--no-merging":
+            cfg["use_merging"] = False
+        elif arg == "--max_merged_length":
+            cfg["max_merged_length"] = int(_need_value(argv, i, arg)); i += 1
+        elif arg == "--strand":
+            val = _need_value(argv, i, arg); i += 1
+            if val == "BOTH":
+                cfg["strand"] = Strand.BOTH_STRANDS
+            elif val == "PLUS":
+                cfg["strand"] = Strand.PLUS_STRAND
+            else:
+                print(HELP)
+                print("Unknown expression following --strand", file=sys.stderr)
+                sys.exit(4)
+        elif arg == "--bg-model-order":
+            cfg["bg_model_order"] = int(_need_value(argv, i, arg)); i += 1
+        elif arg == "--no-neighbor-filtering":
+            cfg["filter_neighbors"] = False
+        elif arg == "--minimum-processed-patterns":
+            cfg["minimum_processed_motifs"] = int(_need_value(argv, i, arg)); i += 1
+        elif arg == "--max-optimized-patterns":
+            cfg["max_optimized_patterns"] = int(_need_value(argv, i, arg)); i += 1
+        elif arg == "--version":
+            print(f"peng_motif {__version__}")
+            sys.exit(0)
+        elif arg == "-h":
+            print(HELP)
+            sys.exit(0)
+        elif arg == "--engine":
+            # auto and tpu both run the device engine
+            val = _need_value(argv, i, arg); i += 1
+            if val == "exact":
+                _not_ported("--engine exact")
+            if val not in ("tpu", "auto"):
+                print(HELP)
+                print("Unknown expression following --engine",
+                      file=sys.stderr)
+                sys.exit(4)
+        elif arg == "--device":
+            val = _need_value(argv, i, arg); i += 1
+            if val not in DEVICES:
+                print(HELP)
+                print("Unknown expression following --device",
+                      file=sys.stderr)
+                sys.exit(4)
+            cfg["device"] = val
+        elif arg == "--timing":
+            cfg["timing"] = True
+        elif arg in _NOT_PORTED:
+            _not_ported(arg)
+        else:
+            print(f"Ignoring unknown option {arg}", file=sys.stderr)
+        i += 1
+    return cfg
+
+
+def main(argv=None):
+    argv = list(sys.argv) if argv is None else ["peng_motif"] + list(argv)
+    cfg = parse_args(argv)
+    set_verbosity(cfg["verbosity"])
+    try:
+        device = resolve_device(cfg["device"])
+    except DeviceUnavailable as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
+
+    try:
+        sequence_set = load_sequence_set(cfg["input"])
+        # the reference always constructs a second SequenceSet for the
+        # background (src/Global.cpp:66-74), re-parsing the input when no
+        # separate file is given; share the parse but replay its
+        # warnings so stderr stays byte-identical
+        bg_path = cfg["background_sequences"] or cfg["input"]
+        if bg_path == cfg["input"]:
+            for w in sequence_set.warnings:
+                print(w, file=sys.stderr)
+            bg_set = sequence_set
+        else:
+            bg_set = load_sequence_set(bg_path)
+    except OSError as e:
+        # reference: src/shared/SequenceSet.cpp:445-448
+        print(f"Error: Cannot open FASTA file: {e.filename or e}",
+              file=sys.stderr)
+        return 1
+    except FastaFormatError as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
+
+    bg_model_order = max(cfg["bg_model_order"], cfg["max_opt_bg_model_order"])
+    # defer: the device engine fuses the (k+1)-mer scan into the count
+    # (ops/stream_count.stream_bg_counts) and delivers the counts — no
+    # host corpus scan at all.  Only when the bg corpus IS the input
+    # corpus and the fused-histogram gates hold (the engine re-checks and
+    # falls back to a threaded host scan otherwise).
+    defer_bg = (
+        bg_path == cfg["input"]
+        and bg_model_order <= 3
+        and cfg["pattern_length"] >= 5  # fused bg needs ctx = 2(W-1) >= 8
+    )
+    # lazy: the (k+1)-mer scan runs in a thread and overlaps the device
+    # count (first .v access joins)
+    bg_model = BackgroundModel(
+        bg_set.sequences, order=bg_model_order, interpolate=True,
+        defer=defer_bg, lazy=not defer_bg,
+    )
+
+    peng = Peng(
+        cfg["strand"], cfg["bg_model_order"], cfg["max_opt_bg_model_order"],
+        sequence_set, bg_model,
+    )
+    params = PengParameters(
+        max_pattern_length=cfg["pattern_length"],
+        zscore_threshold=cfg["zscore_threshold"],
+        count_threshold=cfg["count_threshold"],
+        pseudo_counts=cfg["pseudo_counts"],
+        opt_score_type=cfg["opt_score_type"],
+        enrich_pseudocount_factor=cfg["enrich_pseudocount_factor"],
+        use_em=cfg["use_em"],
+        em_saturation_factor=cfg["em_saturation_factor"],
+        em_min_threshold=cfg["em_min_threshold"],
+        em_max_iterations=cfg["em_max_iterations"],
+        use_merging=cfg["use_merging"],
+        bit_factor_merge_threshold=cfg["bit_factor_merge_threshold"],
+        adv_pwm=cfg["adv_pwm"],
+        minimum_processed_motifs=cfg["minimum_processed_motifs"],
+        filter_neighbors=cfg["filter_neighbors"],
+        max_optimized_patterns=cfg["max_optimized_patterns"],
+        max_merged_length=cfg["max_merged_length"],
+        threads=cfg["threads"] if cfg["threads"] > 1 else 0,
+        device=device,
+    )
+
+    try:
+        result = peng.process(params)
+    except NotPortedError as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
+    peng.filter_redundancy(cfg["bit_factor_merge_threshold"], result)
+
+    if cfg["output"]:
+        write_meme(result, cfg["output"], bg_model.v[0], peng.iupac_profile)
+    if cfg["json"]:
+        write_json(result, cfg["json"], bg_model.v[0], peng.iupac_profile)
+    if cfg["timing"]:
+        peng.timer.report()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,566 @@
+"""Native C++ host helpers, bound via ctypes.
+
+The library is the reference package's ``peng_motif_tpu/native/
+pengnative.cpp``, compiled by path (the source is not copied) into
+``peng_motif_tpu_torch/_build/libpengnative.so`` at first use, and again
+whenever the source is newer than the library.  This module binds only
+the functions the port calls.
+
+The port's byte parity with the reference binary rests on this library
+(libstdc++ tie-exact sorts, reference-order float folds, EM), so there is
+no degraded pure-Python path: a failed build or load raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import threading
+from typing import List, Sequence
+
+import numpy as np
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BUILD_DIR = os.path.join(_PKG, "_build")
+_SRC = os.path.join(os.path.dirname(_PKG), "peng_motif_tpu", "native",
+                    "pengnative.cpp")
+_SO = os.path.join(BUILD_DIR, "libpengnative.so")
+
+_lock = threading.Lock()
+_lib = None
+
+_c_f32p = ctypes.POINTER(ctypes.c_float)
+_c_i32p = ctypes.POINTER(ctypes.c_int32)
+_c_i64p = ctypes.POINTER(ctypes.c_int64)
+_c_u8p = ctypes.POINTER(ctypes.c_uint8)
+_c_u32p = ctypes.POINTER(ctypes.c_uint32)
+_c_u64p = ctypes.POINTER(ctypes.c_uint64)
+
+
+def compile_library(src: str, so: str, cmd: List[str]) -> str:
+    """Run ``cmd + ["-o", <tmp>, src]`` when ``so`` is missing or older
+    than ``src``, then move the result into place atomically (a per-
+    process temp name, so concurrent builders never see a half-written
+    library).  Returns the compiler's output; raises RuntimeError with
+    it when the build fails."""
+    if not os.path.exists(src):
+        raise RuntimeError(f"source not found: {src}")
+    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+        return ""
+    os.makedirs(os.path.dirname(so), exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    try:
+        proc = subprocess.run(cmd + ["-o", tmp, src], capture_output=True,
+                              text=True, timeout=600)
+    except OSError as e:
+        raise RuntimeError(f"cannot run {cmd[0]}: {e}") from e
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"building {os.path.basename(so)} failed ({' '.join(cmd)}):\n"
+            + proc.stdout + proc.stderr)
+    os.replace(tmp, so)
+    return proc.stdout + proc.stderr
+
+
+def _declare(lib) -> None:
+    sig = {
+        "fasta_open": ([ctypes.c_char_p, _c_i64p, _c_i64p, _c_i64p,
+                        ctypes.c_char_p, ctypes.c_int64,
+                        ctypes.c_char_p, ctypes.c_int64, _c_i64p],
+                       ctypes.c_int64),
+        "fasta_take": ([ctypes.c_int64, _c_u8p, _c_i64p, _c_i64p],
+                       ctypes.c_int64),
+        "bg_count_kmers": ([_c_u8p, _c_i64p, ctypes.c_int64, ctypes.c_int,
+                            _c_i64p], None),
+        "build_stream_native": ([_c_u8p, _c_i64p, ctypes.c_int64,
+                                 ctypes.c_int64, _c_u8p], None),
+        "chunk_pack_native": ([_c_u8p] + [ctypes.c_int64] * 5 + [_c_u8p],
+                              None),
+        "chunk_pack2_native": ([_c_u8p] + [ctypes.c_int64] * 5 + [_c_u8p],
+                               None),
+        "mirror_canonical_i32": ([_c_i32p, ctypes.c_int, _c_i32p], None),
+        "stream_fixup_native": (
+            [_c_u8p, ctypes.c_int64, _c_i64p, _c_i64p, ctypes.c_int64,
+             _c_i64p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+             ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+             _c_i64p, _c_i32p, ctypes.c_int64, _c_i64p],
+            ctypes.c_int64),
+        "bg_prob_table_native": ([_c_f32p, _c_i64p, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_int, _c_f32p], None),
+        "base_stats_table": ([_c_i32p, _c_f32p, ctypes.c_int64,
+                              ctypes.c_int64, _c_f32p, _c_f32p], None),
+        "zscore_sort_prefix": ([_c_f32p, ctypes.c_uint64, ctypes.c_float,
+                                _c_u32p], None),
+        "select_patterns_walk": ([_c_u32p, _c_f32p, _c_i32p, ctypes.c_int64,
+                                  ctypes.c_int, ctypes.c_float,
+                                  ctypes.c_int32, ctypes.c_int, ctypes.c_int,
+                                  _c_u32p], ctypes.c_int64),
+        "base_log_pvalues_table": ([_c_i32p, _c_f32p, ctypes.c_int64,
+                                    _c_f32p], None),
+        "base_opt_score": ([ctypes.c_int, ctypes.c_uint32, ctypes.c_float,
+                            ctypes.c_uint64, ctypes.c_uint32],
+                           ctypes.c_float),
+        "iupac_aggregate_exact": ([_c_i32p, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_int, _c_i32p, _c_f32p, _c_f32p,
+                                   _c_u64p, _c_f32p, _c_f32p], None),
+        "iupac_aggregate_score": ([_c_i32p, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_int, _c_i32p, _c_f32p, _c_f32p,
+                                   ctypes.c_int, ctypes.c_uint64,
+                                   ctypes.c_uint32, _c_u64p]
+                                  + [_c_f32p] * 5, None),
+        "em_optimize_batch": ([_c_f32p, _c_f32p, _c_f32p, ctypes.c_int,
+                               ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                               ctypes.c_int, ctypes.c_int], None),
+        "calculate_s_single": ([_c_f32p, _c_f32p, _c_f32p, ctypes.c_int,
+                                ctypes.c_int, ctypes.c_int], ctypes.c_float),
+        "calculate_d_bg_single": ([_c_f32p, _c_f32p, ctypes.c_int,
+                                   ctypes.c_int], ctypes.c_float),
+        "calculate_best_overlap_native": (
+            [_c_f32p, _c_f32p, ctypes.c_int, ctypes.c_uint64,
+             _c_f32p, _c_f32p, ctypes.c_int, ctypes.c_uint64,
+             ctypes.c_int, _c_f32p, ctypes.c_int,
+             _c_f32p, ctypes.POINTER(ctypes.c_int),
+             ctypes.POINTER(ctypes.c_int)], None),
+        "float_sort_indices_asc": ([_c_f32p, ctypes.c_uint64, _c_u32p], None),
+    }
+    for name, (argtypes, restype) in sig.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+
+
+def get_lib() -> ctypes.CDLL:
+    """Load the native library, building it first if needed.  Raises
+    RuntimeError (build) or OSError (load) on failure."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            # -ffp-contract=off is parity-critical: FMA contraction would
+            # change float rounding vs the reference binary.  -march=native
+            # is byte-safe (elementwise IEEE ops are correctly rounded in
+            # any vector width, and g++ never vectorizes FP reductions
+            # without -ffast-math); the library is built on the host that
+            # runs it, and on the baseline ISA where g++ refuses the flag.
+            base = ["g++", "-O3", "-std=c++17", "-ffp-contract=off",
+                    "-shared", "-fPIC"]
+            try:
+                compile_library(_SRC, _SO, base + ["-march=native"])
+            except RuntimeError:
+                compile_library(_SRC, _SO, base)
+            lib = ctypes.CDLL(_SO)
+            _declare(lib)
+            _lib = lib
+        return _lib
+
+
+def _ptr(a: np.ndarray, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def _f32(a) -> np.ndarray:
+    return np.ascontiguousarray(a, dtype=np.float32)
+
+
+# ---------------------------------------------------------------------------
+# parsing and background
+# ---------------------------------------------------------------------------
+
+
+def parse_fasta_native(filepath: str, alphabet=None):
+    """Native FASTA parse into a SequenceSet; None for a non-standard
+    alphabet or a file the parser cannot open (the caller's Python
+    parser then raises the OSError)."""
+    from ..alphabets import STANDARD  # noqa: PLC0415
+    from ..io.fasta import FastaFormatError, SequenceSet  # noqa: PLC0415
+
+    if alphabet is not None and alphabet.alphabet_type != "STANDARD":
+        return None
+    lib = get_lib()
+    import sys  # noqa: PLC0415
+
+    n_seq = ctypes.c_int64()
+    total = ctypes.c_int64()
+    n_empty = ctypes.c_int64()
+    n_undef = ctypes.c_int64()
+    header_buf = ctypes.create_string_buffer(65536)
+    undef_buf = ctypes.create_string_buffer(1 << 20)
+    handle = lib.fasta_open(filepath.encode(), ctypes.byref(n_seq),
+                            ctypes.byref(total), ctypes.byref(n_empty),
+                            header_buf, ctypes.c_int64(65536),
+                            undef_buf, ctypes.c_int64(1 << 20),
+                            ctypes.byref(n_undef))
+    if handle == -2:
+        raise FastaFormatError(
+            f"FASTA sequence contains space character: {filepath}")
+    if handle == -3:
+        raise FastaFormatError(f"Wrong FASTA format: {filepath}")
+    if handle <= 0:
+        return None
+    warnings = []
+    for _ in range(int(n_empty.value)):
+        # reference: SequenceSet.cpp:344-348
+        warnings.append(
+            f"Warning: Ignore FASTA entry without sequence: {filepath}")
+    # reference quirk: the EOF-flushed (last) entry warns per undefined
+    # base (SequenceSet.cpp:395-404)
+    if int(n_undef.value):
+        hdr = header_buf.value.decode(errors="replace")
+        for ch in undef_buf.value.decode(errors="replace"):
+            warnings.append("Warning: The FASTA file contains an undefined "
+                            f"base: {ch} at sequence {hdr}")
+    for w in warnings:
+        print(w, file=sys.stderr)
+    codes = np.empty(int(total.value), dtype=np.uint8)
+    lengths = np.empty(int(n_seq.value), dtype=np.int64)
+    base_counts = np.empty(4, dtype=np.int64)
+    rc = lib.fasta_take(handle, _ptr(codes, ctypes.c_uint8),
+                        _ptr(lengths, ctypes.c_int64),
+                        _ptr(base_counts, ctypes.c_int64))
+    if rc != 0:
+        raise RuntimeError(f"native FASTA parse lost its handle: {filepath}")
+    sset = SequenceSet(filepath=filepath, alphabet=alphabet or STANDARD)
+    sset.warnings = warnings
+    sset._flat_codes = codes  # contiguous buffer: fast padded()
+    offset = 0
+    for length in lengths:
+        sset.sequences.append(codes[offset : offset + int(length)])
+        sset.headers.append("")
+        offset += int(length)
+    tot = base_counts.sum()
+    sset.base_frequencies = (
+        base_counts.astype(np.float32) / np.float32(tot) if tot else
+        np.zeros(4, dtype=np.float32))
+    # O(1) undefined-base count (total bases minus defined): saves the
+    # engine a full-corpus count_nonzero scan
+    sset.n_undefined = int(total.value) - int(tot)
+    return sset
+
+
+def bg_count_kmers_native(sequences: Sequence[np.ndarray], order: int):
+    """(k+1)-mer count vectors for k = 0..order with reference N-window
+    semantics (see pengnative.cpp); None above order 8, which the
+    reference's kmer ids do not cover."""
+    if order > 8:
+        return None
+    lib = get_lib()
+    lengths = np.array([len(s) for s in sequences], dtype=np.int64)
+    codes = (np.concatenate([np.asarray(s, dtype=np.uint8).ravel()
+                             for s in sequences])
+             if len(sequences) else np.empty(0, dtype=np.uint8))
+    codes = np.ascontiguousarray(codes, dtype=np.uint8)
+    out = np.empty(sum(4 ** (k + 1) for k in range(order + 1)),
+                   dtype=np.int64)
+    lib.bg_count_kmers(_ptr(codes, ctypes.c_uint8),
+                       _ptr(lengths, ctypes.c_int64),
+                       ctypes.c_int64(len(sequences)), ctypes.c_int(order),
+                       _ptr(out, ctypes.c_int64))
+    res, off = [], 0
+    for k in range(order + 1):
+        n = 4 ** (k + 1)
+        res.append(out[off : off + n].copy())
+        off += n
+    return res
+
+
+def bg_prob_table_native_fn(v_list, length: int, order: int,
+                            both_strands: bool) -> np.ndarray:
+    """Threaded bg-probability table in the reference's exact multiply
+    order (see pengnative.cpp)."""
+    lib = get_lib()
+    v_concat = np.concatenate([_f32(v) for v in v_list])
+    v_off = np.zeros(order + 1, dtype=np.int64)
+    acc = 0
+    for k in range(order + 1):
+        v_off[k] = acc
+        acc += 4 ** (k + 1)
+    out = np.empty(4 ** length, dtype=np.float32)
+    lib.bg_prob_table_native(
+        _ptr(v_concat, ctypes.c_float), _ptr(v_off, ctypes.c_int64),
+        ctypes.c_int(order), ctypes.c_int(length),
+        ctypes.c_int(1 if both_strands else 0), _ptr(out, ctypes.c_float))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# stream layout, packing, mirror and fix-up
+# ---------------------------------------------------------------------------
+
+
+def build_stream_fill_native(flat: np.ndarray, lengths: np.ndarray,
+                             w: int, stream: np.ndarray) -> None:
+    """Fill the gap-packed stream from the contiguous parse buffer
+    (threaded memcpy)."""
+    lib = get_lib()
+    flat = np.ascontiguousarray(flat, dtype=np.uint8)
+    lengths = np.ascontiguousarray(lengths, dtype=np.int64)
+    lib.build_stream_native(_ptr(flat, ctypes.c_uint8),
+                            _ptr(lengths, ctypes.c_int64),
+                            ctypes.c_int64(lengths.shape[0]),
+                            ctypes.c_int64(w), _ptr(stream, ctypes.c_uint8))
+
+
+def chunk_pack_stream_native(stream: np.ndarray, m_pad: int, row: int,
+                             core: int, ctx: int) -> np.ndarray:
+    """Packed 2-bit + N-mask chunk buffer straight from the stream (fused
+    chunk + pack, threaded)."""
+    lib = get_lib()
+    stream = np.ascontiguousarray(stream, dtype=np.uint8)
+    out = np.empty(m_pad * ((row + 3) // 4 + (row + 7) // 8), dtype=np.uint8)
+    lib.chunk_pack_native(_ptr(stream, ctypes.c_uint8),
+                          stream.shape[0], m_pad, row, core, ctx,
+                          _ptr(out, ctypes.c_uint8))
+    return out
+
+
+def chunk_pack_stream2_native(stream: np.ndarray, m_pad: int, row: int,
+                              core: int, ctx: int) -> np.ndarray:
+    """2-bit-only wire variant (no N-mask bytes; see ops/stream_count.py
+    wire2 section)."""
+    lib = get_lib()
+    stream = np.ascontiguousarray(stream, dtype=np.uint8)
+    out = np.empty(m_pad * ((row + 3) // 4), dtype=np.uint8)
+    lib.chunk_pack2_native(_ptr(stream, ctypes.c_uint8),
+                           stream.shape[0], m_pad, row, core, ctx,
+                           _ptr(out, ctypes.c_uint8))
+    return out
+
+
+def mirror_canonical_native(vals: np.ndarray, length: int) -> np.ndarray:
+    """Full mirrored [4**W] int32 count table from its canonical-id
+    compaction (ascending canonical ids; see pengnative.cpp)."""
+    lib = get_lib()
+    vals = np.ascontiguousarray(vals, dtype=np.int32)
+    out = np.empty(4 ** length, dtype=np.int32)
+    lib.mirror_canonical_i32(_ptr(vals, ctypes.c_int32), ctypes.c_int(length),
+                             _ptr(out, ctypes.c_int32))
+    return out
+
+
+def stream_fixup_delta_native(
+    stream: np.ndarray, seq_starts: np.ndarray, seq_lens: np.ndarray,
+    susp_chunks: np.ndarray, w: int, row: int, core: int, ctx: int,
+    both: bool,
+):
+    """Native twin of ops.stream_count.stream_fixup_delta: returns
+    (ids int64 [n], dvs int32 [n], ltot_delta)."""
+    lib = get_lib()
+    stream = np.ascontiguousarray(stream, dtype=np.uint8)
+    seq_starts = np.ascontiguousarray(seq_starts, dtype=np.int64)
+    seq_lens = np.ascontiguousarray(seq_lens, dtype=np.int64)
+    susp_chunks = np.ascontiguousarray(susp_chunks, dtype=np.int64)
+    # doubled buffers on capacity overflow (n < 0), up to the 4**14
+    # distinct-id bound
+    cap = 1 << 20
+    while True:
+        out_ids = np.empty(cap, dtype=np.int64)
+        out_dv = np.empty(cap, dtype=np.int32)
+        ltot_delta = ctypes.c_int64(0)
+        n = lib.stream_fixup_native(
+            _ptr(stream, ctypes.c_uint8), stream.shape[0],
+            _ptr(seq_starts, ctypes.c_int64),
+            _ptr(seq_lens, ctypes.c_int64), seq_starts.shape[0],
+            _ptr(susp_chunks, ctypes.c_int64), susp_chunks.shape[0],
+            w, row, core, ctx, 1 if both else 0,
+            _ptr(out_ids, ctypes.c_int64), _ptr(out_dv, ctypes.c_int32),
+            cap, ctypes.byref(ltot_delta))
+        if n >= 0:
+            return out_ids[:n], out_dv[:n], int(ltot_delta.value)
+        if cap >= (1 << 28):
+            raise RuntimeError("stream fix-up delta exceeds 2**28 entries")
+        cap *= 2
+
+
+# ---------------------------------------------------------------------------
+# per-pattern statistics, seed selection, aggregation
+# ---------------------------------------------------------------------------
+
+
+def base_stats_native(counts: np.ndarray, bgp: np.ndarray, ltot: int):
+    """(expected, zscores) tables with the reference's exact float/double
+    promotion points (see pengnative.cpp)."""
+    lib = get_lib()
+    counts = np.ascontiguousarray(counts, dtype=np.int32)
+    bgp = _f32(bgp)
+    n = counts.shape[0]
+    expected = np.empty(n, dtype=np.float32)
+    zscores = np.empty(n, dtype=np.float32)
+    lib.base_stats_table(_ptr(counts, ctypes.c_int32),
+                         _ptr(bgp, ctypes.c_float), n, int(ltot),
+                         _ptr(expected, ctypes.c_float),
+                         _ptr(zscores, ctypes.c_float))
+    return expected, zscores
+
+
+def base_log_pvalues_native(counts: np.ndarray,
+                            expected: np.ndarray) -> np.ndarray:
+    """Whole-table log p-values with the reference binary's exact libm
+    semantics (see pengnative.cpp)."""
+    lib = get_lib()
+    counts = np.ascontiguousarray(counts, dtype=np.int32)
+    expected = _f32(expected)
+    out = np.empty(counts.shape[0], dtype=np.float32)
+    lib.base_log_pvalues_table(_ptr(counts, ctypes.c_int32),
+                               _ptr(expected, ctypes.c_float),
+                               counts.shape[0], _ptr(out, ctypes.c_float))
+    return out
+
+
+def zscore_sort_prefix_indices(z: np.ndarray,
+                               zscore_threshold: float) -> np.ndarray:
+    """Descending z-order whose above-threshold prefix (all the seed walk
+    reads) is element-for-element the full libstdc++ std::sort, with the
+    never-read subranges pruned (see pengnative.cpp zscore_sort_prefix)."""
+    lib = get_lib()
+    z = _f32(z)
+    out = np.empty(z.shape[0], dtype=np.uint32)
+    lib.zscore_sort_prefix(_ptr(z, ctypes.c_float), z.shape[0],
+                           float(zscore_threshold), _ptr(out, ctypes.c_uint32))
+    return out
+
+
+def select_patterns_walk_native(order, z, counts, w: int, z_thr: float,
+                                count_thr: int, single_stranded: bool,
+                                filter_neighbors: bool) -> np.ndarray:
+    """Seed-selection threshold walk (reference:
+    src/base_pattern.cpp:443-515); the selected ids in walk order."""
+    lib = get_lib()
+    order = np.ascontiguousarray(order, dtype=np.uint32)
+    z = _f32(z)
+    counts = np.ascontiguousarray(counts, dtype=np.int32)
+    # every selection satisfies NOT (z < thr); NaN z never breaks the walk
+    cap = int(np.count_nonzero(~(z < np.float32(z_thr))))
+    out = np.empty(max(cap, 1), dtype=np.uint32)
+    n_sel = lib.select_patterns_walk(
+        _ptr(order, ctypes.c_uint32), _ptr(z, ctypes.c_float),
+        _ptr(counts, ctypes.c_int32), z.shape[0], w, z_thr, count_thr,
+        1 if single_stranded else 0, 1 if filter_neighbors else 0,
+        _ptr(out, ctypes.c_uint32))
+    return out[:n_sel]
+
+
+def base_opt_score_native(score_type: int, observed: int, expected,
+                          pseudo: int, n_sequences: int) -> np.float32:
+    """Seed optimization score with exact reference float semantics
+    (reference: src/base_pattern.cpp:180-200)."""
+    return np.float32(get_lib().base_opt_score(
+        score_type, observed, float(expected), pseudo, n_sequences))
+
+
+def iupac_aggregate_exact(digit_batch, both_strands: bool, counts_table,
+                          expected_table, bgp_table):
+    """Reference-fold-order IUPAC aggregation (see pengnative.cpp):
+    (counts int64, expected f32, bgp f32) per digit row."""
+    lib = get_lib()
+    digit_batch = np.ascontiguousarray(digit_batch, dtype=np.int32)
+    b, w = digit_batch.shape
+    counts_table = np.ascontiguousarray(counts_table, dtype=np.int32)
+    expected_table = _f32(expected_table)
+    bgp_table = _f32(bgp_table)
+    counts_out = np.empty(b, dtype=np.uint64)
+    expected_out = np.empty(b, dtype=np.float32)
+    bgp_out = np.empty(b, dtype=np.float32)
+    lib.iupac_aggregate_exact(
+        _ptr(digit_batch, ctypes.c_int32), b, w, 1 if both_strands else 0,
+        _ptr(counts_table, ctypes.c_int32),
+        _ptr(expected_table, ctypes.c_float), _ptr(bgp_table, ctypes.c_float),
+        _ptr(counts_out, ctypes.c_uint64), _ptr(expected_out, ctypes.c_float),
+        _ptr(bgp_out, ctypes.c_float))
+    return counts_out.astype(np.int64), expected_out, bgp_out
+
+
+def iupac_aggregate_score(digit_batch, both_strands: bool, counts_table,
+                          expected_table, bgp_table, score_type: int,
+                          pseudo_expected: int, n_sequences: int):
+    """Aggregation + statistics + optimization score in one native pass
+    with exact reference float semantics: (counts i64, expected, bgp,
+    zscore, logp, score), the last five f32."""
+    lib = get_lib()
+    digit_batch = np.ascontiguousarray(digit_batch, dtype=np.int32)
+    b, w = digit_batch.shape
+    counts_table = np.ascontiguousarray(counts_table, dtype=np.int32)
+    expected_table = _f32(expected_table)
+    bgp_table = _f32(bgp_table)
+    counts_out = np.empty(b, dtype=np.uint64)
+    outs = [np.empty(b, dtype=np.float32) for _ in range(5)]
+    lib.iupac_aggregate_score(
+        _ptr(digit_batch, ctypes.c_int32), b, w, 1 if both_strands else 0,
+        _ptr(counts_table, ctypes.c_int32),
+        _ptr(expected_table, ctypes.c_float), _ptr(bgp_table, ctypes.c_float),
+        score_type, pseudo_expected, n_sequences,
+        _ptr(counts_out, ctypes.c_uint64),
+        *[_ptr(o, ctypes.c_float) for o in outs])
+    return (counts_out.astype(np.int64), *outs)
+
+
+# ---------------------------------------------------------------------------
+# EM, motif similarity, motif sort
+# ---------------------------------------------------------------------------
+
+
+def em_optimize_native(pwms: np.ndarray, counts_f32: np.ndarray,
+                       bg_f32: np.ndarray, saturation_factor: float,
+                       min_threshold: float, max_iterations: int,
+                       n_threads: int = 0) -> np.ndarray:
+    """Bit-exact EM in the reference's operation order; ``pwms`` is
+    [M, W, 4] float32, the refined copy is returned."""
+    lib = get_lib()
+    pwms = _f32(pwms).copy()
+    counts_f32 = _f32(counts_f32)
+    bg_f32 = _f32(bg_f32)
+    m, w, _ = pwms.shape
+    if n_threads <= 0:
+        n_threads = min(m, os.cpu_count() or 1)
+    lib.em_optimize_batch(_ptr(pwms, ctypes.c_float),
+                          _ptr(counts_f32, ctypes.c_float),
+                          _ptr(bg_f32, ctypes.c_float), m, w,
+                          saturation_factor, min_threshold, max_iterations,
+                          n_threads)
+    return pwms
+
+
+def calculate_s_native(p1_pwm, p2_pwm, background, off1: int, off2: int,
+                       l: int) -> np.float32:
+    """Reference-float-order PWM similarity (see pengnative.cpp)."""
+    p1, p2, bg = _f32(p1_pwm), _f32(p2_pwm), _f32(background)
+    return np.float32(get_lib().calculate_s_single(
+        _ptr(p1, ctypes.c_float), _ptr(p2, ctypes.c_float),
+        _ptr(bg, ctypes.c_float), off1, off2, l))
+
+
+def calculate_d_bg_native(p_pwm, background, l: int,
+                          offset: int) -> np.float32:
+    """Reference-float-order divergence from the background."""
+    p, bg = _f32(p_pwm), _f32(background)
+    return np.float32(get_lib().calculate_d_bg_single(
+        _ptr(p, ctypes.c_float), _ptr(bg, ctypes.c_float), l, offset))
+
+
+def best_overlap_native(pwm1, comp1, len1: int, sites1: int,
+                        pwm2, comp2, len2: int, sites2: int,
+                        both_strands: bool, background, min_overlap: int):
+    """Best (s, shift, comp) over all overlaps for one motif pair
+    (reference: calculate_S, src/iupac_pattern.cpp:568-615)."""
+    arrs = [_f32(a) for a in (pwm1, comp1, pwm2, comp2, background)]
+    out_s = ctypes.c_float()
+    out_shift = ctypes.c_int()
+    out_comp = ctypes.c_int()
+    get_lib().calculate_best_overlap_native(
+        _ptr(arrs[0], ctypes.c_float), _ptr(arrs[1], ctypes.c_float),
+        len1, sites1,
+        _ptr(arrs[2], ctypes.c_float), _ptr(arrs[3], ctypes.c_float),
+        len2, sites2, 1 if both_strands else 0,
+        _ptr(arrs[4], ctypes.c_float), min_overlap,
+        ctypes.byref(out_s), ctypes.byref(out_shift), ctypes.byref(out_comp))
+    return np.float32(out_s.value), int(out_shift.value), bool(out_comp.value)
+
+
+def float_sort_indices_asc(values: np.ndarray) -> np.ndarray:
+    """Ascending std::sort permutation (reference motif-sort semantics,
+    including introsort tie placement)."""
+    lib = get_lib()
+    values = _f32(values)
+    out = np.empty(values.shape[0], dtype=np.uint32)
+    lib.float_sort_indices_asc(_ptr(values, ctypes.c_float),
+                               values.shape[0], _ptr(out, ctypes.c_uint32))
+    return out

@@ -1,0 +1,83 @@
+"""Pattern-id conventions and per-window ids on torch tensors.
+
+The flat index of a ``4**W`` pattern table is the PEnG little-endian
+pattern id (reference: src/base_pattern.h:20-29):
+
+    flat id = sum_p c_p * 4**p      (position p has factor 4**p)
+
+The reverse-complement, canonical-mask and canonical-index tables are
+built once per width in numpy (``_np_*``, cached) and copied to the
+requested device; the device code only gathers with them.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+
+@functools.lru_cache(maxsize=None)
+def _np_rc_ids(length: int) -> np.ndarray:
+    ids = np.arange(4 ** length, dtype=np.int64)
+    rc = np.zeros_like(ids)
+    for p in range(length):
+        digit = (ids >> (2 * p)) & 3
+        rc |= (3 - digit) << (2 * (length - 1 - p))
+    return rc.astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _np_canonical_mask(length: int) -> np.ndarray:
+    ids = np.arange(4 ** length, dtype=np.int64)
+    return ids <= _np_rc_ids(length)
+
+
+@functools.lru_cache(maxsize=None)
+def _np_canonical_idx(length: int) -> np.ndarray:
+    return np.flatnonzero(_np_canonical_mask(length)).astype(np.int32)
+
+
+def rc_ids_flat(length: int, device) -> torch.Tensor:
+    """Flat [4**W] int64 tensor of reverse-complement ids (gather index)."""
+    return torch.from_numpy(_np_rc_ids(length)).to(device, torch.int64)
+
+
+def canonical_mask_flat(length: int, device) -> torch.Tensor:
+    """Flat [4**W] bool mask: id <= revcomp(id)."""
+    return torch.from_numpy(_np_canonical_mask(length)).to(device)
+
+
+def canonical_idx_flat(length: int, device) -> torch.Tensor:
+    """Ascending ids with id <= revcomp(id), [(4**W + pal)/2] int64."""
+    return torch.from_numpy(_np_canonical_idx(length)).to(device, torch.int64)
+
+
+def window_ids(codes: torch.Tensor, length: int):
+    """Per-window pattern ids for a batch of encoded sequences.
+
+    Args:
+      codes: [B, L] uint8/int32 BaMM codes (0 = N/undefined/padding).
+      length: pattern length W.
+
+    Returns:
+      (fwd_ids, rc_ids, valid): each [B, L - W + 1]; ids are int32 PEnG
+      little-endian pattern ids; ``valid`` marks windows made entirely of
+      defined bases (the reference skips windows containing code 0,
+      src/base_pattern.cpp:350-353).  Invalid windows read id 0.
+    """
+    codes = codes.to(torch.int32)
+    n_win = codes.shape[-1] - length + 1
+    shape = codes.shape[:-1] + (n_win,)
+    fwd = torch.zeros(shape, dtype=torch.int32, device=codes.device)
+    rc = torch.zeros_like(fwd)
+    valid = torch.ones(shape, dtype=torch.bool, device=codes.device)
+    for p in range(length):
+        c = codes[..., p : p + n_win]
+        valid &= c > 0
+        fwd += (c - 1) * (4 ** p)
+        rc += (4 - c) * (4 ** (length - 1 - p))
+    fwd = torch.where(valid, fwd, 0)
+    rc = torch.where(valid, rc, 0)
+    return fwd, rc, valid

@@ -1,0 +1,462 @@
+"""Pipeline orchestrator: the motif discovery driver.
+
+Counterpart of the reference's Peng::process
+(reference: src/peng.cpp:322-435):
+
+  1. count base patterns + statistics    (device count, engine.py)
+  2. IUPAC hill climbing                 (host twin, native scoring)
+  3. PWM construction                    (host twin, native aggregation)
+  4. EM sharpening + motif merging       (native EM, host merge loop)
+
+Greedy, order-dependent decisions (seed walk, hill climb, merging) run on
+host; the count phase runs on the selected torch device.
+"""
+
+from __future__ import annotations
+
+import sys
+from dataclasses import dataclass
+from typing import List, Set
+
+import numpy as np
+import torch
+
+from .alphabets import (
+    IUPAC_N,
+    IUPAC_SIMILAR,
+    LOG_BONFERRONI,
+    base_id_to_iupac_id,
+    iupac_id_to_digits,
+)
+from .engine import process_gpu
+from .models.background import BackgroundModel
+from .models.motif import (
+    Motif,
+    build_iupac_profile,
+    calculate_best_overlap,
+    calculate_s,
+    merge_motifs,
+    sort_by_log_pvalue,
+)
+from .pattern_tables import OptimizationScore, PatternTables, Strand
+from .utils import numerics
+from .utils.logging_utils import PhaseTimer, get_logger
+
+F32 = np.float32
+
+# vectorized hill-climb move tables (see _optimize_iupac_patterns)
+_IUPAC_SIMILAR_ARR = tuple(
+    np.asarray(s, dtype=np.int32) for s in IUPAC_SIMILAR)
+_POW11 = 11 ** np.arange(19, dtype=np.int64)  # 11**19 would overflow int64
+
+
+@dataclass
+class PengParameters:
+    """Pipeline configuration (reference: PengParameters, src/peng.h:14-35;
+    defaults from src/Global.cpp:12-56)."""
+
+    max_pattern_length: int = 10
+    zscore_threshold: float = 10.0
+    count_threshold: int = 3
+    pseudo_counts: int = 10
+    opt_score_type: OptimizationScore = OptimizationScore.MUTUAL_INFO
+    enrich_pseudocount_factor: float = 0.005
+    use_em: bool = True
+    em_saturation_factor: float = 1e4
+    em_min_threshold: float = 0.08
+    em_max_iterations: int = 10
+    use_merging: bool = True
+    bit_factor_merge_threshold: float = 0.4
+    adv_pwm: bool = True
+    minimum_processed_motifs: int = 0
+    filter_neighbors: bool = True
+    max_optimized_patterns: int = 50
+    max_merged_length: int = 14
+    threads: int = 0                       # native-kernel threads (0 = auto)
+    # device of the count phase (device.resolve_device); as on the CLI,
+    # cuda unless the caller names the CPU
+    device: torch.device = torch.device("cuda")
+
+
+class Peng:
+    """Motif discovery pipeline (reference: class Peng, src/peng.{h,cpp})."""
+
+    def __init__(
+        self,
+        strand: Strand,
+        k: int,
+        max_opt_k: int,
+        sequence_set,
+        bg_model: BackgroundModel,
+        stdout=None,
+    ):
+        self.strand = strand
+        self.k = k
+        self.max_k = max(k, max_opt_k)
+        self.sequence_set = sequence_set
+        self.bg_model = bg_model
+        self.n_sequences = sequence_set.n
+        self._iupac_profile = None  # lazy: bg_model may still be counting
+        # resolve at call time so redirect_stdout works
+        self.out = stdout if stdout is not None else sys.stdout
+        self.log = get_logger()
+        self.timer = PhaseTimer()
+
+    @property
+    def iupac_profile(self):
+        """Nearest-IUPAC rendering profiles (reference:
+        src/iupac_pattern.cpp:215-238).  Computed on first use so a
+        deferred background model can overlap the count phase."""
+        if self._iupac_profile is None:
+            self._iupac_profile = build_iupac_profile(self.bg_model.v[0])
+        return self._iupac_profile
+
+    # ------------------------------------------------------------------
+    def process(self, params: PengParameters) -> List[Motif]:
+        return process_gpu(self, params)
+
+    # -- phase 2: hill climb (reference: src/peng.cpp:437-541) -----------
+    def _optimize_iupac_patterns(
+        self,
+        score_type: OptimizationScore,
+        tables: PatternTables,
+        selected: List[int],
+        enrich_pseudocount_factor: float,
+    ) -> List[Motif]:
+        W = tables.pattern_length
+        seen: Set[int] = set()
+        best_ids: Set[int] = set()
+        best_motifs: List[Motif] = []
+        pseudo_expected = int(self.n_sequences * enrich_pseudocount_factor)
+
+        for base_pattern in selected:
+            iupac_id = base_id_to_iupac_id(base_pattern, W)
+            best = self._make_motif(iupac_id, tables)
+            best_score = tables.optimization_score(
+                score_type, base_pattern, pseudo_expected
+            )
+            self._print_climb_row(best, best_score)
+
+            improved = True
+            while improved:
+                improved = False
+                mother = best.pattern_id
+                mother_digits = iupac_id_to_digits(mother, W)
+                current_seen: Set[int] = set()
+
+                # candidate batch: every position x every similar letter,
+                # in reference evaluation order (src/peng.cpp:470-501) —
+                # built vectorized (the climb runs hundreds of steps)
+                sims = [_IUPAC_SIMILAR_ARR[c] for c in mother_digits]
+                pos_idx = np.repeat(
+                    np.arange(W), [s.shape[0] for s in sims])
+                letters = np.concatenate(sims)
+                n_cand = letters.shape[0]
+                cand_digits = np.repeat(
+                    mother_digits[None].astype(np.int32), n_cand, 0)
+                cand_digits[np.arange(n_cand), pos_idx] = letters
+                pow_p = _POW11[pos_idx]
+                cand_ids = (
+                    mother
+                    - mother_digits[pos_idx].astype(np.int64) * pow_p
+                    + letters.astype(np.int64) * pow_p
+                )
+                # native single pass: stats + score already computed
+                counts, expected, bgp, zs, logp, scores = \
+                    tables.aggregate_and_score(
+                        cand_digits, score_type, pseudo_expected)
+                current_seen.update(cand_ids.tolist())
+                # the reference walk accepts every strict improvement
+                # over the running best (printing each); the accept
+                # set is exactly scores[i] < min(best, scores[:i])
+                # (fmin: NaN scores never update the running min,
+                # matching `NaN < best` = false in the scalar walk)
+                runmin = np.fmin.accumulate(
+                    np.concatenate(([np.float32(best_score)], scores))
+                )
+                for idx in np.flatnonzero(scores < runmin[:-1]):
+                    idx = int(idx)
+                    improved = True
+                    best_score = scores[idx]
+                    mutant = Motif(int(cand_ids[idx]), W)
+                    mutant.bg_p = bgp[idx]
+                    mutant.expected_counts = expected[idx]
+                    mutant.zscore = zs[idx]
+                    mutant.n_sites = int(counts[idx])
+                    mutant.local_n_sites[:] = mutant.n_sites
+                    mutant.log_pvalue = logp[idx]
+                    best = mutant
+                    self._print_climb_row(best, best_score)
+
+                if best.pattern_id in seen:
+                    improved = False
+                current_seen.discard(best.pattern_id)
+                seen.update(current_seen)
+
+            if best.pattern_id not in best_ids and best.pattern_id not in seen:
+                best_motifs.append(best)
+                best_ids.add(best.pattern_id)
+                seen.add(best.pattern_id)
+                print(
+                    f"optimization: {tables.to_string(base_pattern)} -> "
+                    f"{best.iupac_string()}\n", file=self.out,
+                )
+            else:
+                print(
+                    f"optimization: {tables.to_string(base_pattern)} "
+                    f"removed\t\n", file=self.out,
+                )
+
+        self._print_motif_table(best_motifs)
+        return best_motifs
+
+    def _make_motif(self, iupac_id: int, tables: PatternTables) -> Motif:
+        motif = Motif(iupac_id, tables.pattern_length)
+        digits = iupac_id_to_digits(iupac_id, tables.pattern_length)
+        counts, expected, bgp = tables.aggregate_digits(
+            np.asarray(digits)[None]
+        )
+        motif.set_aggregates(int(counts[0]), expected[0], bgp[0],
+                             LOG_BONFERRONI)
+        return motif
+
+    # -- phase 2b: filter (reference: src/peng.cpp:543-599) --------------
+    def _filter_iupac_patterns(
+        self, W: int, minimum_retained: int, motifs: List[Motif]
+    ) -> List[Motif]:
+        kept = []
+        for motif in motifs:
+            digits = iupac_id_to_digits(motif.pattern_id, W)
+            informative = sum(1 for c in digits if c != IUPAC_N)
+            if informative > 3:
+                kept.append(motif)
+
+        kept = sort_by_log_pvalue(kept)
+        min_pvalue = F32(-5.0)
+        if kept:
+            min_pvalue = min(F32(-5.0), F32(kept[0].log_pvalue * F32(0.2)))
+
+        return [
+            m for i, m in enumerate(kept)
+            if m.log_pvalue < min_pvalue or i < minimum_retained
+        ]
+
+    # -- phase 3: PWMs (reference: src/peng.cpp:372-393) -----------------
+    def _calculate_pwms(
+        self, tables: PatternTables, motifs: List[Motif],
+        params: PengParameters,
+    ):
+        W = tables.pattern_length
+        bg0 = self.bg_model.v[0]
+        if params.adv_pwm:
+            # one batched call: 4 letter-substitutions x W positions
+            # x all motifs (reference computes these counts one expansion
+            # at a time, src/iupac_pattern.cpp:505-536)
+            digit_batch = []
+            for motif in motifs:
+                digits = iupac_id_to_digits(motif.pattern_id, W)
+                for p in range(W):
+                    for letter in range(4):
+                        d = digits.copy()
+                        d[p] = letter
+                        digit_batch.append(d)
+            if digit_batch:
+                counts, _, _ = tables.aggregate_digits(np.stack(digit_batch))
+            idx = 0
+            for motif in motifs:
+                pwm = np.zeros((W, 4), dtype=F32)
+                for p in range(W):
+                    i_total = np.zeros(4, dtype=np.int64)
+                    for letter in range(4):
+                        i_total[letter] = int(
+                            params.pseudo_counts * F32(bg0[letter])
+                        ) + int(counts[idx])
+                        idx += 1
+                    n_total = int(i_total.sum())
+                    pwm[p] = (i_total.astype(np.float64) / n_total).astype(F32)
+                motif.pwm = pwm
+                motif.calculate_comp_pwm()
+                self._print_pwm_row("adv pwm: ", motif)
+        else:
+            # Reference behavior, reproduced faithfully: in default-PWM
+            # mode the per-motif base-pattern list is never populated
+            # (src/iupac_pattern.cpp:475-503 iterates the always-empty
+            # member vector), so the PWM reduces to normalized
+            # pseudo-counts: pwm[p][a] = pseudo*bg[a] / (n_sites+pseudo).
+            for motif in motifs:
+                row = np.array(
+                    [F32(params.pseudo_counts * F32(bg0[a])) for a in range(4)],
+                    dtype=F32,
+                )
+                denom = F32(1.0 * motif.n_sites + params.pseudo_counts)
+                pwm = np.tile((row / denom).astype(F32), (W, 1))
+                motif.pwm = pwm
+                motif.calculate_comp_pwm()
+                self._print_pwm_row("def pwm: ", motif)
+
+    # -- phase 4a: EM (reference: src/peng.cpp:48-178) -------------------
+    def _em_optimize(
+        self,
+        motifs: List[Motif],
+        tables: PatternTables,
+        saturation_factor: float,
+        min_threshold: float,
+        max_iterations: int,
+        background_order: int,
+        threads: int = 0,
+    ) -> List[Motif]:
+        if not motifs:
+            return []
+        from .native import em_optimize_native  # noqa: PLC0415
+
+        W = tables.pattern_length
+        pwms_np = np.stack([m.pwm for m in motifs]).astype(np.float32)
+
+        # bit-exact reference operation order (native, threaded over
+        # motifs); see native/pengnative.cpp
+        final_pwms = em_optimize_native(
+            pwms_np,
+            tables.counts_np.astype(np.float32),
+            tables.bg_tensors.host_flat(background_order),
+            saturation_factor, min_threshold, max_iterations,
+            n_threads=threads,
+        )
+
+        optimized = []
+        for i, motif in enumerate(motifs):
+            new_motif = motif.clone_with_pwm(final_pwms[i])
+            optimized.append(new_motif)
+            info = numerics.pwm_info_content(new_motif.pwm) / W
+            print(
+                f"em: {motif.iupac_string()} -> "
+                f"{new_motif.pattern_string(self.iupac_profile)}   "
+                f"[ avg. info: {info:.2f} ]", file=self.out,
+            )
+        return optimized
+
+    # -- phase 4b: merging (reference: src/peng.cpp:237-313) -------------
+    def _merge_patterns(
+        self, W: int, threshold: float, motifs: List[Motif],
+        max_merged_length: int,
+    ):
+        both = self.strand == Strand.BOTH_STRANDS
+        bg0 = self.bg_model.v[0]
+        # The reference recomputes every pair each merge round
+        # (src/peng.cpp:247-263); scores are pure functions of the two
+        # (immutable) motifs, so memoizing unchanged pairs is
+        # outcome-identical and turns the loop from O(rounds * n^2) into
+        # O(n^2 + rounds * n) overlap scans.
+        pair_cache: dict = {}
+        while True:
+            best_score = -np.inf
+            best_i = best_j = 0
+            best_shift = 0
+            best_comp = False
+            for i in range(len(motifs)):
+                if motifs[i].log_pvalue > -5:
+                    continue
+                for j in range(i + 1, len(motifs)):
+                    if motifs[j].log_pvalue > -5:
+                        continue
+                    key = (motifs[i], motifs[j])
+                    hit = pair_cache.get(key)
+                    if hit is None:
+                        hit = calculate_best_overlap(
+                            motifs[i], motifs[j], both, bg0
+                        )
+                        pair_cache[key] = hit
+                    s, shift, comp = hit
+                    if s > best_score:
+                        best_i, best_j = i, j
+                        best_score, best_shift, best_comp = s, shift, comp
+
+            if not (
+                best_score > W * threshold
+                and motifs
+                and motifs[best_i].length <= max_merged_length
+                and motifs[best_j].length <= max_merged_length
+            ):
+                return
+
+            if motifs[best_i].length < motifs[best_j].length:
+                longer, shorter = motifs[best_j], motifs[best_i]
+            else:
+                longer, shorter = motifs[best_i], motifs[best_j]
+            merged = merge_motifs(longer, shorter, best_comp, bg0, best_shift)
+
+            if (merged.length <= self.sequence_set.max_l
+                    and merged.length <= max_merged_length):
+                print(
+                    f"merge: "
+                    f"{motifs[best_j].pattern_string(self.iupac_profile)} + "
+                    f"{motifs[best_i].pattern_string(self.iupac_profile)} -> "
+                    f"{merged.pattern_string(self.iupac_profile)}",
+                    file=self.out,
+                )
+                del motifs[best_j]
+                del motifs[best_i]
+                motifs.append(merged)
+            else:
+                # reference `continue`s with found_better still false,
+                # terminating the merge loop (src/peng.cpp:308-310)
+                return
+
+    # -- redundancy filter (reference: src/peng.cpp:199-235) -------------
+    def filter_redundancy(self, threshold: float, motifs: List[Motif]):
+        motifs[:] = sort_by_log_pvalue(motifs)
+        bg0 = self.bg_model.v[0]
+        deselected: Set[int] = set()
+        for i in range(len(motifs)):
+            if i in deselected:
+                continue
+            for j in range(i + 1, len(motifs)):
+                if j in deselected or motifs[i].length != motifs[j].length:
+                    continue
+                length = motifs[i].length
+                s1 = calculate_s(motifs[i].pwm, motifs[j].pwm, bg0, 0, 0,
+                                 length)
+                s2 = calculate_s(motifs[i].comp_pwm, motifs[j].pwm, bg0, 0, 0,
+                                 length)
+                thr = F32(threshold) * length
+                if s1 > thr or s2 > thr:
+                    deselected.add(j)
+                    break  # reference breaks after one deselection per i
+        for index in sorted(deselected, reverse=True):
+            del motifs[index]
+
+    # -- status printing ---------------------------------------------------
+    def _status(self, header: str, leading_newline: bool = True):
+        if leading_newline:
+            print(file=self.out)
+        print(f"[STATUS] {header}:", file=self.out)
+
+    def _print_climb_row(self, motif: Motif, score):
+        enr = (motif.n_sites / motif.expected_counts
+               if motif.expected_counts else np.inf)
+        # cout is sticky std::fixed from the first seed table on
+        # (reference: src/base_pattern.cpp:524), so the climb columns are
+        # fixed-point with 2 / 6 decimals (src/peng.cpp:459-463)
+        print(
+            f"\t{motif.iupac_string():>15}\t{motif.n_sites:>10}\t"
+            f"{enr:>5.2f}\t{score:>10.6f}", file=self.out,
+        )
+
+    def _print_motif_table(self, motifs: List[Motif]):
+        print(
+            f"{'pattern':>15}\t{'observed':>15}\t{'enrichment':>15}\t"
+            f"{'zscore':>15}\n", file=self.out,
+        )
+        for m in motifs:
+            enr = m.n_sites / m.expected_counts if m.expected_counts else np.inf
+            print(
+                f"{m.iupac_string():>15}\t{m.n_sites:>15}\t{enr:>15.2f}\t"
+                f"{m.zscore:>15.2f}", file=self.out,
+            )
+
+    def _print_pwm_row(self, prefix: str, motif: Motif):
+        info = numerics.pwm_info_content(motif.pwm) / motif.length
+        print(
+            f"{prefix}{motif.iupac_string()} -> "
+            f"{motif.pattern_string(self.iupac_profile)}   "
+            f"[ avg. info: {info:.2f} ]", file=self.out,
+        )

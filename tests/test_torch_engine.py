@@ -1,0 +1,162 @@
+"""The port's CLI end to end on the CPU (``--device cpu``): the golden
+cases of the reference package's device engine, the host-twin byte
+parity of every golden case, degenerate inputs against the reference
+CLI, and the port's own flag errors.
+
+Tolerances: the ENGINE_CASES contract of tests/test_engine_tpu.py —
+structure and decisions identical, floats within 5e-6 absolute + 1e-6
+relative (2e-5 for mafk_w8_rich).  Phases 2-5 of this slice are the
+reference's byte-exact host twins, so the slice is also held to byte
+identity of MEME, JSON and stdout.
+"""
+
+import os
+
+import pytest
+import torch
+
+from conftest import GOLDEN_DIR
+from test_e2e_parity import CASES
+from test_engine_tpu import ENGINE_CASES
+
+from peng_motif_tpu.cli import main as reference_main
+from peng_motif_tpu_torch import engine
+from peng_motif_tpu_torch.cli import main
+from peng_motif_tpu_torch.ops import histogram
+
+
+def _read(path):
+    with open(path) as f:
+        return f.read()
+
+
+def _assert_within_tol(got, want, stem, tol, rel=1e-6):
+    got_lines, want_lines = got.splitlines(), want.splitlines()
+    assert len(got_lines) == len(want_lines), f"line count differs: {stem}"
+    for ln, (a, b) in enumerate(zip(got_lines, want_lines), 1):
+        if a == b:
+            continue
+        ta, tb = a.split(), b.split()
+        assert len(ta) == len(tb), f"{stem}:{ln}: {a!r} vs {b!r}"
+        for x, y in zip(ta, tb):
+            if x == y:
+                continue
+            try:
+                fx, fy = float(x.rstrip(",")), float(y.rstrip(","))
+            except ValueError:
+                raise AssertionError(f"{stem}:{ln}: {a!r} vs {b!r}")
+            assert abs(fx - fy) <= tol + rel * abs(fy), \
+                f"{stem}:{ln}: {a!r} vs {b!r}"
+
+
+@pytest.mark.parametrize("stem,args", ENGINE_CASES,
+                         ids=[c[0] for c in ENGINE_CASES])
+def test_engine_cases_within_tolerance(stem, args, tmp_path):
+    meme, js = str(tmp_path / "o.meme"), str(tmp_path / "o.json")
+    argv = ([os.path.join(GOLDEN_DIR, args[0])] + args[1:]
+            + ["--device", "cpu", "-o", meme, "-j", js])
+    assert main(argv) == 0
+    tol = 2e-5 if stem == "mafk_w8_rich" else 5e-6
+    _assert_within_tol(_read(meme), _read(
+        os.path.join(GOLDEN_DIR, f"{stem}.meme")), stem, tol)
+    golden_json = os.path.join(GOLDEN_DIR, f"{stem}.json")
+    if os.path.exists(golden_json):
+        _assert_within_tol(_read(js), _read(golden_json), stem, tol)
+    assert engine.LAST_ENGINE_USED == "cpu"
+    assert engine.LAST_CLIMB_ENGINE == engine.LAST_PWM_ENGINE == "host"
+
+
+@pytest.mark.parametrize("stem,args,check_json", CASES,
+                         ids=[c[0] for c in CASES])
+def test_host_twins_byte_identical(stem, args, check_json, tmp_path, capsys):
+    meme, js = str(tmp_path / "o.meme"), str(tmp_path / "o.json")
+    argv = ([os.path.join(GOLDEN_DIR, args[0])] + args[1:]
+            + ["--device", "cpu", "-o", meme, "-j", js])
+    assert main(argv) == 0
+    out = capsys.readouterr().out
+    assert _read(meme) == _read(os.path.join(GOLDEN_DIR, f"{stem}.meme"))
+    if check_json:
+        assert _read(js) == _read(os.path.join(GOLDEN_DIR, f"{stem}.json"))
+    log = os.path.join(GOLDEN_DIR, f"{stem}.log")
+    if os.path.exists(log):
+        want = "".join(ln for ln in _read(log).splitlines(keepends=True)
+                       if not ln.startswith("Warning:"))
+        assert out == want
+
+
+EDGE_INPUTS = {
+    "empty_file": "",
+    "header_only": ">only_header\n",
+    "shorter_than_w": ">s1\nACGT\n",
+    "all_n": ">s1\n" + "N" * 64 + "\n",
+    "mixed_short_and_n": ">a\nACG\n>b\nNNNNACGTACGTNN\n>c\nTTGACTCA\n",
+}
+
+
+@pytest.mark.parametrize("name", list(EDGE_INPUTS))
+def test_edge_inputs_match_reference_cli(name, tmp_path, capsys):
+    fa = tmp_path / "in.fa"
+    fa.write_text(EDGE_INPUTS[name])
+    outs = {}
+    for label, fn, extra in (("ref", reference_main, []),
+                             ("port", main, ["--device", "cpu"])):
+        meme = tmp_path / f"{label}.meme"
+        assert fn([str(fa), "-w", "8", "-o", str(meme)] + extra) == 0
+        cap = capsys.readouterr()
+        outs[label] = (cap.out, cap.err, meme.read_text())
+    assert outs["port"][0] == outs["ref"][0]          # stdout
+    assert outs["port"][2] == outs["ref"][2]          # MEME
+    for ln in outs["ref"][1].splitlines():             # warnings
+        if ln.startswith("Warning:"):
+            assert ln in outs["port"][1]
+
+
+def test_cpu_run_launches_no_kernel(tmp_path):
+    before = histogram.LAUNCHES
+    for eng in ("auto", "tpu"):
+        assert main([os.path.join(GOLDEN_DIR, "MafK_100seqs.fasta"),
+                     "-w", "8", "--device", "cpu", "--engine", eng,
+                     "-o", str(tmp_path / "o.meme")]) == 0
+        assert _read(tmp_path / "o.meme") == _read(
+            os.path.join(GOLDEN_DIR, "mafk100_w8.meme"))
+    assert histogram.LAUNCHES == before
+
+
+def test_device_cuda_without_cuda_fails(tmp_path, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = tmp_path / "o.meme"
+    rc = main([os.path.join(GOLDEN_DIR, "MafK_100seqs.fasta"), "-w", "8",
+               "--device", "cuda", "-o", str(out)])
+    assert rc != 0
+    assert "torch.cuda.is_available() is false" in capsys.readouterr().err
+    assert not out.exists()
+
+
+def test_default_device_is_cuda(tmp_path, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    rc = main([os.path.join(GOLDEN_DIR, "MafK_100seqs.fasta"), "-w", "8",
+               "-o", str(tmp_path / "o.meme")])
+    assert rc != 0
+    assert "--device cuda" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", [
+    ["--engine", "exact"], ["--devices", "2"], ["--profile", "trace"],
+    ["--save-checkpoint", "ck"], ["--load-checkpoint", "ck"],
+    ["--num-processes", "2"], ["--process-id", "1"],
+    ["--coordinator", "localhost:1234"]], ids=lambda f: f[0] + f[1])
+def test_unported_flags_exit_with_error(flag, capsys):
+    with pytest.raises(SystemExit) as exc:
+        main([os.path.join(GOLDEN_DIR, "MafK_100seqs.fasta"), "-w", "8",
+              "--device", "cpu"] + flag)
+    assert exc.value.code != 0
+    assert "not yet ported to peng_motif_tpu_torch" in capsys.readouterr().err
+
+
+def test_unknown_device_rejected(capsys):
+    with pytest.raises(SystemExit) as exc:
+        main([os.path.join(GOLDEN_DIR, "MafK_100seqs.fasta"),
+              "--device", "tpu"])
+    assert exc.value.code == 4
