@@ -15,15 +15,27 @@ caught):
                (torch.bincount), bit-identical, at ~50M ids for six table
                sizes and on four edge inputs, both timed with CUDA events;
   4. golden  — the port's CLI with --device cuda on the golden MafK
-               inputs (-w 8, -w 10) against the reference's MEME files
-               (5e-6 absolute + 1e-6 relative, identical structure);
+               inputs (MafK -w 8, -w 10; MafK_100seqs -w 8, -w 12)
+               against the reference's MEME files (5e-6 absolute + 1e-6
+               relative, identical structure), every 4**W-table phase on
+               the device (LAST_CLIMB_ENGINE == LAST_PWM_ENGINE ==
+               "device"), with the --timing phase walls and the device
+               wall of each post-count program (stats, climb, adv-PWM,
+               EM) rerun on the recorded inputs;
   5. scale   — the 51.2-Mbase corpus (25,000 x 2,048 bp, seed 7) through
                the CLI at -w 10, with the kernel and with the plain
                histogram swapped in, in turns (kernel, plain, plain,
                kernel): identical count table, ltot, background counts and
                MEME bytes; the same for the count phase alone at -w 12.
                The kernel is also checked and timed on the exact inputs
-               the main path handed it.
+               the main path handed it;
+  6. chain   — the post-count chain (stats -> climb -> adv-PWM -> EM),
+               card against CPU from the same resident state, on the
+               MafK -w 10 count (f32 chain) and the 51.2-Mbase -w 10
+               count (f64 "wide" chain, ltot >= 2**24): the walk trace's
+               integer fields identical, its floats within 1e-6 relative
+               (scores 2e-6 + 2e-5), the adv-PWMs bit-identical, the EM
+               PWMs within 5e-6 with identical iteration counts.
 
 The last two lines are the kernels' JSON record and the run's result,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -80,15 +92,23 @@ def within_tolerance(got: str, want: str) -> bool:
 
 def run_cli(argv):
     """The port's CLI in-process; stdout (the climb log) is discarded.
-    Returns the wall time in seconds."""
+    Returns (wall time in seconds, {phase: ms} of the --timing report
+    when ``argv`` asks for it)."""
     from peng_motif_tpu_torch.cli import main
 
+    err = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()):
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(err):
         rc = main(argv)
     wall = time.perf_counter() - t0
-    assert rc == 0, f"CLI exited {rc}: {argv}"
-    return wall
+    assert rc == 0, f"CLI exited {rc}: {argv}\n{err.getvalue()}"
+    timing = {}
+    for line in err.getvalue().splitlines():
+        if line.startswith("[TIMING] "):
+            name, ms = line[len("[TIMING] "):].rsplit(": ", 1)
+            timing[name] = float(ms.split()[0])
+    return wall, timing
 
 
 def time_pair(ids, inc, n_bins, reps=10):
@@ -165,9 +185,10 @@ class Recorder:
 
         def count_phase(*a, **k):
             t0 = time.perf_counter()
-            self.counts, self.ltot = real_phase(*a, **k)
+            out = real_phase(*a, **k)
             self.count_s += time.perf_counter() - t0
-            return self.counts, self.ltot
+            self.counts, self.ltot = out[0], out[1]
+            return out
 
         def deliver(bgm, bg_words, bg_corr):
             real_deliver(bgm, bg_words, bg_corr)
@@ -185,6 +206,135 @@ class Recorder:
         finally:
             engine._count_phase, engine._deliver_bg = real_phase, real_deliver
             stream_count.histogram = real_hist
+
+
+class ChainRecorder:
+    """Wraps the engine's post-count programs to keep the inputs one CLI
+    run handed each: the resident state, the seeds, the motif digits and
+    the statics.  :meth:`inputs` copies them to the host after the run."""
+
+    NAMES = ("stats_program", "run_walks", "adv_pwm_program",
+             "em_optimize_flat")
+
+    @contextlib.contextmanager
+    def active(self):
+        from peng_motif_tpu_torch import engine
+
+        real = {n: getattr(engine, n) for n in self.NAMES}
+        self.calls = {}
+
+        def wrap(name):
+            def fn(*a, **k):
+                self.calls.setdefault(name, (a, k))
+                return real[name](*a, **k)
+            return fn
+
+        for n in self.NAMES:
+            setattr(engine, n, wrap(n))
+        try:
+            yield self
+        finally:
+            for n in self.NAMES:
+                setattr(engine, n, real[n])
+
+    def inputs(self):
+        import numpy as np
+
+        (state, W, k, kmax, both), _ = self.calls["stats_program"]
+        a, kw = self.calls["run_walks"]
+        inp = dict(
+            counts=state.counts.cpu().numpy(), ltot=state.ltot,
+            fix_ids=state.fix_ids.cpu().numpy(),
+            fix_dv=state.fix_dv.cpu().numpy(),
+            v=[x.cpu().numpy() for x in state.v], stats=(W, k, kmax, both),
+            seeds=list(a[3]), walks=a[4:9], wide=kw["wide"], adv=None,
+            em=None)
+        if "adv_pwm_program" in self.calls:
+            a, _ = self.calls["adv_pwm_program"]
+            inp["adv"] = (np.asarray(a[0]), a[3])
+        if "em_optimize_flat" in self.calls:
+            a, _ = self.calls["em_optimize_flat"]
+            inp["em"] = a[3:6]
+        return inp
+
+
+def run_chain(inp, dev):
+    """stats -> climb -> adv-PWM -> EM on ``dev`` from recorded inputs:
+    ({program: synchronized wall s}, {output: host arrays})."""
+    import torch
+
+    from peng_motif_tpu_torch import engine
+    from peng_motif_tpu_torch.ops import climb, em
+
+    dev = torch.device(dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    walls, out = {}, {}
+    state = engine.resident_state(inp["counts"], inp["ltot"],
+                                  inp["fix_ids"], inp["fix_dv"], inp["v"],
+                                  dev)
+    W, _k, _kmax, both = inp["stats"]
+    sync()
+    t0 = time.perf_counter()
+    st = engine.stats_program(state, *inp["stats"])
+    sync()
+    walls["stats"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["trace"] = climb.run_walks(
+        st["counts"], st["expected"], st["bgp"], inp["seeds"], *inp["walks"],
+        wide=inp["wide"])
+    walls["climb"] = time.perf_counter() - t0   # the trace fetch syncs
+    out["walk_stats"] = dict(climb.LAST_WALK_STATS)
+    if inp["adv"] is not None:
+        digit_mat, pseudo = inp["adv"]
+        sync()
+        t0 = time.perf_counter()
+        pwm0 = engine.adv_pwm_program(torch.from_numpy(digit_mat),
+                                      st["counts"], state.v[0], pseudo, W,
+                                      both, wide=inp["wide"])
+        sync()
+        walls["adv_pwm"] = time.perf_counter() - t0
+        out["pwm0"] = pwm0.cpu().numpy()
+        if inp["em"] is not None:
+            t0 = time.perf_counter()
+            final, iters = em.em_optimize_flat(pwm0, st["counts"],
+                                               st["bg_max"], *inp["em"], W)
+            sync()
+            walls["em"] = time.perf_counter() - t0
+            out["em"] = (final.cpu().numpy(), iters.cpu().numpy())
+    return walls, out
+
+
+def fmt_walls(walls):
+    return ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in walls.items())
+
+
+def compare_chains(got, want):
+    """Card (``got``) against CPU (``want``): the contract of phase 6."""
+    import numpy as np
+
+    a, b = got["trace"], want["trace"]
+    assert a.n_steps == b.n_steps and a.overflow == b.overflow
+    for k in ("improved", "chosen_idx", "acc_idx", "acc_n", "chosen_counts",
+              "acc_counts", "init_counts"):
+        assert np.array_equal(getattr(a, k), getattr(b, k)), k
+    for k in ("chosen_expected", "chosen_bgp", "acc_expected",
+              "init_expected", "init_bgp"):
+        np.testing.assert_allclose(getattr(a, k), getattr(b, k), rtol=1e-6,
+                                   err_msg=k)
+    for k in ("chosen_score", "acc_score", "init_score"):
+        np.testing.assert_allclose(getattr(a, k), getattr(b, k), rtol=2e-6,
+                                   atol=2e-5, err_msg=k)
+    assert ("pwm0" in got) == ("pwm0" in want)
+    if "pwm0" in got:
+        assert np.array_equal(got["pwm0"], want["pwm0"]), "adv-PWM differs"
+    if "em" in got:
+        assert np.array_equal(got["em"][1], want["em"][1]), "EM iterations"
+        np.testing.assert_allclose(got["em"][0], want["em"][0], rtol=0,
+                                   atol=5e-6, err_msg="EM PWMs")
 
 
 def same_record(a, b):
@@ -280,27 +430,44 @@ def main() -> int:
                       f"{same}", flush=True)
                 assert same, f"kernel != plain on edge input {name}"
 
+    chain_inputs = {}
     with phase("golden end to end (--device cuda)"):
         cases = [("mafk_w8", "MafK.fasta", "8"),
                  ("mafk_w10", "MafK.fasta", "10"),
-                 ("mafk100_w8", "MafK_100seqs.fasta", "8")]
+                 ("mafk100_w8", "MafK_100seqs.fasta", "8"),
+                 ("mafk100_w12", "MafK_100seqs.fasta", "12")]
         with tempfile.TemporaryDirectory() as tmp:
             for stem, fasta, w in cases:
                 out = os.path.join(tmp, f"{stem}.meme")
                 before = H.LAUNCHES
-                wall = run_cli([os.path.join(GOLDEN, fasta), "-w", w,
-                                "--device", "cuda", "-o", out])
+                crec = ChainRecorder()
+                with crec.active():
+                    wall, timing = run_cli([
+                        os.path.join(GOLDEN, fasta), "-w", w, "--device",
+                        "cuda", "--timing", "-o", out])
                 with open(out) as f, \
                         open(os.path.join(GOLDEN, f"{stem}.meme")) as g:
                     got, want = f.read(), g.read()
                 ok = within_tolerance(got, want)
                 print(f"  {stem}: wall {wall:.3f} s, within tolerance {ok}, "
                       f"byte-identical {got == want}, engine "
-                      f"{engine.LAST_ENGINE_USED}, histogram launches "
+                      f"{engine.LAST_ENGINE_USED}, climb "
+                      f"{engine.LAST_CLIMB_ENGINE}, pwm "
+                      f"{engine.LAST_PWM_ENGINE}, histogram launches "
                       f"{H.LAUNCHES - before}", flush=True)
+                print("    --timing: " + ", ".join(
+                    f"{k} {v:.1f} ms" for k, v in timing.items()), flush=True)
                 assert ok, f"{stem}: MEME output outside the tolerance"
                 assert engine.LAST_ENGINE_USED == "gpu"
+                assert engine.LAST_CLIMB_ENGINE == "device"
+                assert engine.LAST_PWM_ENGINE == "device"
                 assert H.LAUNCHES > before, f"{stem}: no kernel launch"
+                inp = crec.inputs()
+                walls, res = run_chain(inp, dev)
+                print(f"    device programs, rerun on the recorded inputs: "
+                      f"{fmt_walls(walls)}; walks {res['walk_stats']}, "
+                      f"ltot {inp['ltot']}, wide {inp['wide']}", flush=True)
+                chain_inputs[stem] = inp
 
     with phase("51.2-Mbase corpus"), \
             tempfile.TemporaryDirectory() as tmp:
@@ -316,13 +483,17 @@ def main() -> int:
         for label in ("kernel", "plain", "plain", "kernel"):
             out = os.path.join(tmp, f"{label}.meme")
             rec = Recorder(plain=label == "plain")
-            with rec.active():
+            crec = ChainRecorder()
+            with rec.active(), crec.active():
                 if launches is None:
                     H.LAUNCHES = 0  # the main-path run starts here
-                wall = run_cli([fasta, "-w", "10", "--device", "cuda",
-                                "-o", out])
+                wall, timing = run_cli([fasta, "-w", "10", "--device",
+                                        "cuda", "--timing", "-o", out])
                 if launches is None:
                     launches = H.LAUNCHES
+                    chain_inputs["large_w10"] = crec.inputs()
+            assert engine.LAST_CLIMB_ENGINE == "device"
+            assert engine.LAST_PWM_ENGINE == "device"
             assert engine.LAST_ENGINE_USED == "gpu"
             with open(out, "rb") as f:
                 meme = f.read()
@@ -332,7 +503,9 @@ def main() -> int:
             print(f"  w10 {label:>6} histogram: end-to-end wall {wall:.3f} "
                   f"s, count phase {rec.count_s:.3f} s = "
                   f"{n_bases / rec.count_s / 1e6:.2f} Mbases/s, ltot "
-                  f"{rec.ltot}", flush=True)
+                  f"{rec.ltot}; --timing: " + ", ".join(
+                      f"{k} {v:.1f} ms" for k, v in timing.items()),
+                  flush=True)
         for label, runs in walls.items():
             e2e = sum(r[0] for r in runs) / len(runs)
             cnt = sum(r[1] for r in runs) / len(runs)
@@ -382,6 +555,23 @@ def main() -> int:
         print("  w12 kernel vs plain: count table, ltot and background "
               "counts identical", flush=True)
         assert int(np.asarray(recs["kernel"].counts).sum()) > 0
+
+    with phase("post-count chain, card against CPU"):
+        for stem, wide in (("mafk_w10", False), ("large_w10", True)):
+            inp = chain_inputs[stem]
+            assert inp["wide"] == wide, (stem, inp["wide"])
+            assert inp["adv"] is not None and inp["em"] is not None, stem
+            res = {}
+            for d in (dev, "cpu"):
+                walls, res[str(d)] = run_chain(inp, d)
+                print(f"  {stem} (wide {wide}) on {d}: {fmt_walls(walls)}; "
+                      f"walks {res[str(d)]['walk_stats']}, motifs "
+                      f"{inp['adv'][0].shape[0]}, EM iterations "
+                      f"{res[str(d)]['em'][1].tolist()}", flush=True)
+            compare_chains(res[str(dev)], res["cpu"])
+            print(f"  {stem}: walk trace integers identical, floats within "
+                  "tolerance; adv-PWMs bit-identical; EM within 5e-6, "
+                  "same iterations", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "histogram", "route": "cuda", "source": KERNEL_SOURCE,

@@ -17,6 +17,7 @@ from .device import DEVICES, DeviceUnavailable, resolve_device
 from .engine import NotPortedError
 from .io.fasta import FastaFormatError, load_sequence_set
 from .models.background import BackgroundModel
+from .ops.climb import ClimbOverflow
 from .output import write_json, write_meme
 from .pattern_tables import OptimizationScore, Strand
 from .pipeline import Peng, PengParameters
@@ -371,13 +372,12 @@ def main(argv=None):
         filter_neighbors=cfg["filter_neighbors"],
         max_optimized_patterns=cfg["max_optimized_patterns"],
         max_merged_length=cfg["max_merged_length"],
-        threads=cfg["threads"] if cfg["threads"] > 1 else 0,
         device=device,
     )
 
     try:
         result = peng.process(params)
-    except NotPortedError as e:
+    except (NotPortedError, ClimbOverflow) as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1
     peng.filter_redundancy(cfg["bit_factor_merge_threshold"], result)

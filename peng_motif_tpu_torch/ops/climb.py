@@ -1,0 +1,518 @@
+"""The IUPAC hill climb: lockstep device walks + host seen-set replay.
+
+Counterpart of ``peng_motif_tpu/ops/climb.py``.  Reference control flow
+(src/peng.cpp:437-541): for each selected seed, repeatedly evaluate
+every single-position IUPAC mutation ("similar" letters,
+src/iupac_alphabet.cpp:47-136) of the current best pattern, in
+position-major order, accepting every strict improvement of the
+optimization score; a global ``seen`` set kills a walk when its step's
+best pattern was evaluated before, and decides final emission.
+
+A walk's trajectory is independent of the seen set: the seen set only
+decides where a walk *stops* (src/peng.cpp:504-506) and whether its
+endpoint is *emitted* (src/peng.cpp:511-524).  So the device runs all S
+walks in lockstep, one step per loop iteration evaluating all
+S x W x 10 single-position mutants through marginal tables, and the
+host replays the sequential seen-set bookkeeping over the returned
+trajectories in seed order.
+
+Scores are computed with the reference's float32-storage /
+float64-transcendental promotion points (ops/flat_tables) and compared
+as float32.  Count sums are exact in the f32 chain while ltot < 2**24;
+``wide`` runs the aggregation chain in f64 (exact to 2**53).
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from . import flat_tables as ft
+from ..alphabets import IUPAC_MASKS, IUPAC_SIMILAR, LOG_BONFERRONI
+
+F32 = torch.float32
+
+MAXSIM = max(len(s) for s in IUPAC_SIMILAR)  # 10 (letter N)
+
+# [11, MAXSIM] similar-letter table, -1 padded, reference order
+SIM_TABLE = np.full((len(IUPAC_SIMILAR), MAXSIM), -1, dtype=np.int32)
+for _c, _sims in enumerate(IUPAC_SIMILAR):
+    SIM_TABLE[_c, : len(_sims)] = _sims
+
+MAX_STEPS = 48     # longest supported walk (score strictly decreases
+                   # each step; real walks take ~15 steps at W=10)
+ACC_CAP = 12       # per-step accepted-row trace slots (running-min
+                   # improvements within one step's ~W*10 candidates)
+
+
+class ClimbOverflow(RuntimeError):
+    """A walk outran MAX_STEPS steps or accepted more than ACC_CAP rows
+    in one step."""
+
+
+class WalkTrace(NamedTuple):
+    """Host-side (numpy) view of the lockstep walk run.  T = MAX_STEPS
+    trace rows (the first n_steps are written), S = number of seeds."""
+
+    improved: np.ndarray         # [T, S] bool — step strictly improved
+    chosen_idx: np.ndarray       # [T, S] int32 candidate index (p*MAXSIM+j)
+    chosen_counts: np.ndarray    # [T, S] f32 (exact integers; int64 wide)
+    chosen_expected: np.ndarray  # [T, S] f32
+    chosen_bgp: np.ndarray       # [T, S] f32
+    chosen_score: np.ndarray     # [T, S] f32
+    acc_idx: np.ndarray          # [T, S, R] int32
+    acc_counts: np.ndarray       # [T, S, R] f32 (int64 wide)
+    acc_expected: np.ndarray     # [T, S, R] f32
+    acc_score: np.ndarray        # [T, S, R] f32
+    acc_n: np.ndarray            # [T, S] int32
+    init_counts: np.ndarray      # [S] f32 (seed IUPAC aggregate; int64 wide)
+    init_expected: np.ndarray    # [S] f32
+    init_bgp: np.ndarray         # [S] f32
+    init_score: np.ndarray       # [S] f32 (from the base tables)
+    n_steps: int
+    overflow: bool
+
+
+class SeedOutcome(NamedTuple):
+    """One seed's replayed walk: print rows + final pattern."""
+
+    rows: List[Tuple[np.ndarray, int, float, float]]  # (digits, n, exp, score)
+    emitted: bool
+    final_digits: np.ndarray
+    final_counts: int
+    final_expected: np.float32
+    final_bgp: np.float32
+
+
+# ---------------------------------------------------------------------------
+# device: lockstep walks
+# ---------------------------------------------------------------------------
+
+
+def _aggregate_full(stack: torch.Tensor, masks: torch.Tensor, length: int,
+                    both: bool) -> torch.Tensor:
+    """Aggregate of full IUPAC mask sets over the stacked tables
+    (S(m) + S(m_rc) - S(m & m_rc), reference:
+    src/iupac_pattern.cpp:410-441).  stack: [G, 4**W]; masks: [..., W, 4]
+    broadcast against G (pass [S, 1, W, 4] for [S, G] aggregates)."""
+    s1 = ft.sep_sum_flat(stack, masks, length)
+    if not both:
+        return s1
+    mrc = masks.flip(-2, -1)
+    s2 = ft.sep_sum_flat(stack, mrc, length)
+    s3 = ft.sep_sum_flat(stack, masks * mrc, length)
+    return s1 + s2 - s3
+
+
+def walks_program(
+    counts_flat: torch.Tensor,     # [4**W] int32, mirrored counts
+    expected_flat: torch.Tensor,   # [4**W] f32
+    bgp_flat: torch.Tensor,        # [4**W] f32 (strand-aggregated, order k)
+    seed_ids: torch.Tensor,        # [S] int32 base-pattern ids
+    n_sequences,                   # f32 scalar
+    pseudo_expected,               # f32 scalar
+    length: int,
+    both: bool,
+    score_type: int,
+    max_steps: int = MAX_STEPS,
+    acc_cap: int = ACC_CAP,
+    wide: bool = False,
+):
+    """All S walks in lockstep on the tables' device; returns the trace
+    as a dict of device tensors (keys of :class:`WalkTrace`).  One host
+    sync per step (the loop stops once no walk is active).  Every seed
+    slot is a live walk: seeds are sized exactly, so the reference's
+    padding mask (``seed_valid``) has no counterpart."""
+    dev = counts_flat.device
+    W = length
+    C = W * MAXSIM
+    S = seed_ids.shape[0]
+    R = acc_cap
+    AGG = torch.float64 if wide else F32
+    n_sequences = ft._scalar_f32(n_sequences, counts_flat)
+    pseudo_expected = ft._scalar_f32(pseudo_expected, counts_flat)
+
+    counts_f = counts_flat.to(AGG)
+    stack = torch.stack([counts_f, expected_flat.to(AGG),
+                         bgp_flat.to(AGG)])
+    if both:
+        stack = torch.where(ft.canonical_mask(W, dev), stack,
+                            torch.zeros((), dtype=AGG, device=dev))
+
+    # hi/lo bilinear layout: flat id = hi * 4**half + lo, so the table
+    # is a [G, H, L] tensor and a separable-mask aggregate is the
+    # bilinear form  kron_hi^T X kron_lo — per step, all mask sets'
+    # X-contractions batch into two matmuls (see _batched_eval)
+    half = W // 2
+    Lb = 4 ** half
+    X = stack.reshape(3, Lb, Lb)
+    dig = np.stack([(np.arange(Lb) >> (2 * p)) & 3
+                    for p in range(half)])               # [half, L]
+    oh_np = np.zeros((half, 4, Lb))
+    for _p in range(half):
+        oh_np[_p, dig[_p], np.arange(Lb)] = 1.0
+    DIG = torch.from_numpy(dig).to(dev)
+    OH = torch.from_numpy(oh_np).to(dev, AGG)
+    POS_H = torch.arange(half, device=dev)[:, None]      # [half, 1]
+
+    sim_tbl = torch.from_numpy(SIM_TABLE.astype(np.int64)).to(dev)
+    masks_tbl = torch.from_numpy(IUPAC_MASKS).to(dev, AGG)
+    lb = torch.from_numpy(np.asarray(LOG_BONFERRONI, dtype=np.float32)).to(
+        dev)
+    pos_idx = torch.arange(W, device=dev).repeat_interleave(MAXSIM)  # [C]
+    mirror = W - 1 - pos_idx                                         # [C]
+    pair_lo = torch.minimum(pos_idx, mirror)                         # [C]
+    is_low = (pos_idx < half)[None, :, None]                         # [1,C,1]
+    inf = torch.full((), float("inf"), dtype=F32, device=dev)
+
+    def bonferroni_fold(digit_mat):
+        """Sequential f32 fold over positions (the reference adds the
+        letter penalties one by one, src/iupac_pattern.cpp:465-468)."""
+        b = torch.zeros(digit_mat.shape[:-1], dtype=F32, device=dev)
+        for p in range(W):
+            b = b + lb[digit_mat[..., p]]
+        return b
+
+    def _factors(rows_half):
+        """[S, half, 4] per-position rows -> [S, half, L] per-index
+        factors.  Mask entries are exactly 0/1, so every kron / cumprod
+        below is exact regardless of multiply order."""
+        return rows_half[:, POS_H, DIG]
+
+    def _loo(f):
+        """Exclusive prefix x suffix products along the position axis:
+        leave-one-out kron factors, [S, half, L]."""
+        pre = torch.cumprod(f, dim=1)
+        suf = torch.cumprod(f.flip(1), dim=1).flip(1)
+        one = torch.ones_like(f[:, :1])
+        pre_ex = torch.cat([one, pre[:, :-1]], dim=1)
+        suf_ex = torch.cat([suf[:, 1:], one], dim=1)
+        return pre_ex * suf_ex
+
+    def _marg(Zs, loo_lo, Ys, loo_hi):
+        """[S, 3, W, 4] single-position marginals: lo positions from
+        the hi-contracted Zs, hi positions from the lo-contracted Ys."""
+        return torch.cat([
+            torch.einsum("sgl,spl,pal->sgpa", Zs, loo_lo, OH),
+            torch.einsum("sgh,sph,pah->sgpa", Ys, loo_hi, OH),
+        ], dim=2)
+
+    def _batched_eval(digits):
+        """All C mutants of all S walks: (scores_f32, cnt, exp, bgp,
+        letters), each [S, C].
+
+        A mutant differs from its mother at one position p, so the
+        double-strand dedup aggregate S(M) + S(M_rc) - S(M & M_rc)
+        (reference: src/iupac_pattern.cpp:410-441) needs the mother's
+        single-position marginals of mask sets A = M, B = M_rc (terms
+        1, 2) and the (p, W-1-p) pair marginals of C = M & M_rc (term
+        3: p and its mirror always straddle the hi/lo split).
+        """
+        S_ = digits.shape[0]
+        m = masks_tbl[digits]                            # [S, W, 4]
+        cand_letters = sim_tbl[digits].reshape(S_, -1)   # [S, C]
+        valid = cand_letters >= 0
+        letters = torch.where(valid, cand_letters, 0)
+        u = masks_tbl[letters]                           # [S, C, 4]
+
+        fA_lo, fA_hi = _factors(m[:, :half]), _factors(m[:, half:])
+        if both:
+            mf = m.flip(1, 2)                            # B rows (rc set)
+            mc = m * mf                                  # C rows (dedup set)
+            fB_lo, fB_hi = _factors(mf[:, :half]), _factors(mf[:, half:])
+            fC_lo, fC_hi = _factors(mc[:, :half]), _factors(mc[:, half:])
+
+            # hi-side contraction: A/B full krons + C leave-one-out
+            # (reversed so slot p pairs global hi position W-1-p with
+            # lo position p)
+            looC_hi4 = (_loo(fC_hi).flip(1)[:, :, None, :]
+                        * OH.flip(0)[None])              # [S, half, 4, H]
+            hi_cat = torch.cat([
+                torch.prod(fA_hi, dim=1)[:, None],
+                torch.prod(fB_hi, dim=1)[:, None],
+                looC_hi4.reshape(S_, 4 * half, Lb),
+            ], dim=1)                                    # [S, 2+4*half, H]
+            Zt = torch.einsum("ghl,skh->sgkl", X, hi_cat)
+
+            lo_cat = torch.stack(
+                [torch.prod(fA_lo, dim=1), torch.prod(fB_lo, dim=1)], dim=1)
+            Yt = torch.einsum("ghl,skl->sgkh", X, lo_cat)  # [S, 3, 2, H]
+
+            MA = _marg(Zt[:, :, 0], _loo(fA_lo), Yt[:, :, 0], _loo(fA_hi))
+            MB = _marg(Zt[:, :, 1], _loo(fB_lo), Yt[:, :, 1], _loo(fB_hi))
+            ZC = Zt[:, :, 2:].reshape(S_, 3, half, 4, Lb)
+            looC_lo4 = _loo(fC_lo)[:, :, None, :] * OH[None]
+            G = torch.einsum("sgpbl,spal->sgpab", ZC, looC_lo4)
+
+            uf = u.flip(-1)
+            sidx = torch.arange(S_, device=dev)[:, None]
+            s1 = torch.einsum("sgca,sca->sgc", MA[:, :, pos_idx], u)
+            s2 = torch.einsum("sgca,sca->sgc", MB[:, :, mirror], uf)
+            m_mir = m[sidx, mirror[None, :]]             # [S, C, 4]
+            mlo_low, mhi_low = u * m_mir.flip(-1), m_mir * uf
+            mask_lo = torch.where(is_low, mlo_low, mhi_low)
+            mask_hi = torch.where(is_low, mhi_low, mlo_low)
+            s3 = torch.einsum("sgcab,sca,scb->sgc",
+                              G[:, :, pair_lo], mask_lo, mask_hi)
+            agg = s1 + s2 - s3                           # [S, 3, C]
+        else:
+            Zt = torch.einsum("ghl,skh->sgkl", X,
+                              torch.prod(fA_hi, dim=1)[:, None])
+            Yt = torch.einsum("ghl,skl->sgkh", X,
+                              torch.prod(fA_lo, dim=1)[:, None])
+            MA = _marg(Zt[:, :, 0], _loo(fA_lo), Yt[:, :, 0], _loo(fA_hi))
+            agg = torch.einsum("sgca,sca->sgc", MA[:, :, pos_idx], u)
+
+        c_c, e_c, b_c = agg[:, 0], agg[:, 1], agg[:, 2]  # [S, C]
+
+        if score_type == 0:
+            cand_digits = digits[:, None, :].expand(S_, C, W)
+            cand_digits = torch.where(
+                torch.arange(W, device=dev)[None, None, :]
+                == pos_idx[None, :, None],
+                letters[..., None], cand_digits)
+            bsum = bonferroni_fold(cand_digits)
+        else:
+            bsum = torch.zeros((S_, C), dtype=F32, device=dev)
+        scores = ft.optimization_scores(
+            score_type, c_c, e_c, n_sequences, pseudo_expected, bsum)
+        scores = torch.where(valid & ~torch.isnan(scores), scores, inf)
+        return scores.to(F32), c_c, e_c, b_c, letters
+
+    # ---- init: seed digits, base-table scores, seed IUPAC aggregates ----
+    seed_ids = seed_ids.to(torch.int64)
+    digits0 = torch.stack(
+        [(seed_ids >> (2 * p)) & 3 for p in range(W)], dim=-1)  # [S, W]
+    base_c = counts_flat[seed_ids]
+    base_e = expected_flat[seed_ids]
+    if score_type == 0:
+        init_score = ft.base_log_pvalues_ref(base_c, base_e)
+    else:
+        init_score = ft.base_optimization_scores(
+            score_type, base_c.to(F32), base_e, None,
+            n_sequences, pseudo_expected)
+    init_score = init_score.to(F32)
+    init_agg = _aggregate_full(stack, masks_tbl[digits0][:, None], W,
+                               both)                     # [S, 3]
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    tr = dict(
+        improved=zeros((max_steps, S), torch.bool),
+        chosen_idx=zeros((max_steps, S), torch.int32),
+        chosen_counts=zeros((max_steps, S), AGG),
+        chosen_expected=zeros((max_steps, S), AGG),
+        chosen_bgp=zeros((max_steps, S), AGG),
+        chosen_score=zeros((max_steps, S), F32),
+        acc_idx=zeros((max_steps, S, R), torch.int32),
+        acc_counts=zeros((max_steps, S, R), AGG),
+        acc_expected=zeros((max_steps, S, R), AGG),
+        acc_score=zeros((max_steps, S, R), F32),
+        acc_n=zeros((max_steps, S), torch.int32),
+    )
+    digits = digits0
+    best_score = init_score
+    bc, be, bb = init_agg[:, 0], init_agg[:, 1], init_agg[:, 2]
+    active = torch.ones(S, dtype=torch.bool, device=dev)
+    overflow = zeros((), torch.bool)
+    cand_i = torch.arange(C, dtype=torch.int32, device=dev).expand(S, C)
+    rows_w = torch.arange(W, device=dev)[None, :]
+
+    t = 0
+    while t < max_steps and bool(active.any()):
+        scores, c_c, e_c, b_c, letters = _batched_eval(digits)  # [S, C]
+
+        # running-min accept trace (reference: src/peng.cpp:485-497;
+        # strict < keeps the earliest min, as argmin does)
+        incl = torch.cummin(scores, dim=1).values
+        prev = torch.minimum(
+            best_score[:, None],
+            torch.cat([inf.expand(S, 1), incl[:, :-1]], dim=1))
+        accepted = (scores < prev) & active[:, None]
+        best_idx = torch.argmin(scores, dim=1)
+        step_min = scores.gather(1, best_idx[:, None])[:, 0]
+        improved = (step_min < best_score) & active
+
+        # compact accepted rows into R slots per walk; slot R (dropped)
+        # takes every duplicate write
+        ranks = torch.cumsum(accepted, dim=1) - 1
+        slot = torch.where(accepted, torch.clamp(ranks, max=R), R)
+
+        def compact(vals, dtype):
+            return zeros((S, R + 1), dtype).scatter_(1, slot, vals)[:, :R]
+
+        n_acc = accepted.sum(dim=1).to(torch.int32)
+        overflow = overflow | ((n_acc > R) & active).any()
+
+        # chosen mutation / state update
+        def pick(arr):
+            return arr.gather(1, best_idx[:, None])[:, 0]
+
+        ch_letter = pick(letters)
+        ch_pos = pos_idx[best_idx]
+        digits = torch.where(
+            (rows_w == ch_pos[:, None]) & improved[:, None],
+            ch_letter[:, None], digits)
+        bc = torch.where(improved, pick(c_c), bc)
+        be = torch.where(improved, pick(e_c), be)
+        bb = torch.where(improved, pick(b_c), bb)
+        best_score = torch.where(improved, step_min, best_score)
+
+        tr["improved"][t] = improved
+        tr["chosen_idx"][t] = best_idx.to(torch.int32)
+        tr["chosen_counts"][t] = pick(c_c)
+        tr["chosen_expected"][t] = pick(e_c)
+        tr["chosen_bgp"][t] = pick(b_c)
+        tr["chosen_score"][t] = step_min
+        tr["acc_idx"][t] = compact(cand_i, torch.int32)
+        tr["acc_counts"][t] = compact(c_c, AGG)
+        tr["acc_expected"][t] = compact(e_c, AGG)
+        tr["acc_score"][t] = compact(scores, F32)
+        tr["acc_n"][t] = torch.where(active, n_acc, 0)
+        active = improved
+        t += 1
+    overflow = overflow | active.any()  # ran out of steps mid-walk
+
+    # in wide mode every count sum is an exact integer in f64 and every
+    # decision is already made; the host reads counts as integers and
+    # the other floats as f32
+    def _cnt(x):
+        return torch.round(x).to(torch.int64) if wide else x
+
+    for key in ("chosen_counts", "acc_counts"):
+        tr[key] = _cnt(tr[key])
+    for key in ("chosen_expected", "chosen_bgp", "acc_expected"):
+        tr[key] = tr[key].to(F32)
+    tr.update(
+        init_counts=_cnt(init_agg[:, 0]),
+        init_expected=init_agg[:, 1].to(F32),
+        init_bgp=init_agg[:, 2].to(F32), init_score=init_score,
+        n_steps=t, overflow=overflow)
+    return tr
+
+
+# stats of the last run_walks call: seeds = live walks, steps = device
+# steps taken, candidates_scored = live walks x W*MAXSIM mutants per step
+LAST_WALK_STATS: dict = {}
+
+
+def run_walks(counts_flat, expected_flat, bgp_flat, seed_ids,
+              length: int, both: bool, score_type: int, n_sequences: int,
+              pseudo_expected: int, wide: bool = False) -> WalkTrace:
+    """Host wrapper: one walk per seed, run on the tables' device, trace
+    fetched to the host.  Raises :class:`ClimbOverflow` when a walk
+    outruns MAX_STEPS or a step accepts more than ACC_CAP rows (the
+    reference package falls back to its exact engine there, which this
+    package does not have)."""
+    dev = counts_flat.device
+    ids = torch.as_tensor(np.asarray(seed_ids, dtype=np.int32)).to(dev)
+    n = ids.shape[0]
+    out = walks_program(
+        counts_flat, expected_flat, bgp_flat, ids, np.float32(n_sequences), np.float32(pseudo_expected),
+        length, both, score_type, max_steps=MAX_STEPS, acc_cap=ACC_CAP,
+        wide=wide)
+    h = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
+         for k, v in out.items()}
+    steps = int(h["n_steps"])
+    LAST_WALK_STATS.clear()
+    LAST_WALK_STATS.update(
+        seeds=n, steps=steps,
+        candidates_scored=steps * n * length * MAXSIM)
+    if bool(h["overflow"]):
+        raise ClimbOverflow(
+            f"climb trace capacity exceeded: a walk ran past "
+            f"MAX_STEPS={MAX_STEPS} steps or accepted more than "
+            f"ACC_CAP={ACC_CAP} rows in one step")
+    h["n_steps"], h["overflow"] = steps, False
+    return WalkTrace(**h)
+
+
+# ---------------------------------------------------------------------------
+# host: seen-set replay
+# ---------------------------------------------------------------------------
+
+_POW11 = [11 ** p for p in range(32)]
+
+
+def _key(digits) -> int:
+    out = 0
+    for p, d in enumerate(digits):
+        out += int(d) * _POW11[p]
+    return out
+
+
+def _candidate_keys(digits, key: int, W: int):
+    """All single-position mutant keys of a mother, reference order
+    (src/peng.cpp:470-480): position-major, similar-letter order."""
+    keys = []
+    for p in range(W):
+        c = int(digits[p])
+        base = key - c * _POW11[p]
+        for r in IUPAC_SIMILAR[c]:
+            keys.append(base + r * _POW11[p])
+    return keys
+
+
+def replay_walks(trace: WalkTrace, seed_ids, W: int) -> List[SeedOutcome]:
+    """Sequential seen-set bookkeeping over the device trajectories
+    (reference: src/peng.cpp:450-541).  Returns one outcome per seed, in
+    seed order, with the reference's exact kill/emit decisions."""
+    seen: set = set()
+    best_set: set = set()
+    outcomes: List[SeedOutcome] = []
+
+    for s, seed_id in enumerate(seed_ids):
+        seed_id = int(seed_id)
+        digits = np.asarray(
+            [(seed_id >> (2 * p)) & 3 for p in range(W)], dtype=np.int32)
+        key = _key(digits)
+        rows: List[Tuple[np.ndarray, int, float, float]] = [(
+            digits.copy(), int(trace.init_counts[s]),
+            float(trace.init_expected[s]), float(trace.init_score[s]))]
+        f_cnt = int(trace.init_counts[s])
+        f_exp = np.float32(trace.init_expected[s])
+        f_bgp = np.float32(trace.init_bgp[s])
+
+        t = 0
+        while True:
+            # step t was evaluated by the device (the walk was active)
+            cand_keys = set(_candidate_keys(digits, key, W))
+            for j in range(int(trace.acc_n[t, s])):
+                idx = int(trace.acc_idx[t, s, j])
+                p, r = divmod(idx, MAXSIM)
+                row_digits = digits.copy()
+                row_digits[p] = SIM_TABLE[digits[p], r]
+                rows.append((row_digits, int(trace.acc_counts[t, s, j]),
+                             float(trace.acc_expected[t, s, j]),
+                             float(trace.acc_score[t, s, j])))
+            if not trace.improved[t, s]:
+                # no improvement: every candidate enters seen, walk ends
+                # (best == mother, never a candidate of its own step)
+                seen |= cand_keys
+                break
+            idx = int(trace.chosen_idx[t, s])
+            p, r = divmod(idx, MAXSIM)
+            new_digits = digits.copy()
+            new_digits[p] = SIM_TABLE[digits[p], r]
+            new_key = key + (int(new_digits[p]) - int(digits[p])) * _POW11[p]
+            f_cnt = int(trace.chosen_counts[t, s])
+            f_exp = np.float32(trace.chosen_expected[t, s])
+            f_bgp = np.float32(trace.chosen_bgp[t, s])
+            killed = new_key in seen
+            seen |= cand_keys - {new_key}
+            digits, key = new_digits, new_key
+            if killed:
+                break
+            t += 1
+
+        emitted = key not in best_set and key not in seen
+        if emitted:
+            best_set.add(key)
+            seen.add(key)
+        outcomes.append(SeedOutcome(
+            rows=rows, emitted=emitted, final_digits=digits,
+            final_counts=f_cnt, final_expected=f_exp, final_bgp=f_bgp))
+    return outcomes

@@ -1,0 +1,80 @@
+"""Saturated EM over the full 4**W count table, batched over motifs.
+
+Counterpart of ``peng_motif_tpu/ops/em.py::em_optimize_flat``.  The
+reference's EM (src/peng.cpp:48-197) recomputes, per iteration and per
+motif, odds[id] = prod_p pwm[p][c_p] / bg[id] over all 4**W ids, then
+accumulates responsibilities r[id] = count[id] * s / (1 + s / odds[id])
+into a new PWM.  Here the product is W broadcast multiplies over the
+flat table and the PWM update is the all-ones-mask marginal of the
+responsibility table (ops/flat_tables), for every still-active motif at
+once.
+
+Iteration control mirrors the reference exactly: a motif iterates while
+(change > min_threshold) and (iterations < max_iterations), where change
+is the L1 difference of the normalized new PWM vs the previous one
+(src/peng.cpp:104-144); a motif that stops is frozen (PWM and iteration
+count) while the others go on.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import flat_tables as ft
+
+F32 = torch.float32
+
+
+def em_optimize_flat(pwms: torch.Tensor, counts_flat: torch.Tensor,
+                     bg_flat: torch.Tensor, saturation_factor,
+                     min_threshold, max_iterations: int, length: int):
+    """pwms: [M, W, 4] f32; counts_flat / bg_flat: [4**W] (mirrored
+    counts; strand-aggregated bg of the optimization order), all on one
+    device.  Returns (final pwms [M, W, 4] f32, iterations [M] int32)."""
+    dev = pwms.device
+    s = torch.tensor(float(saturation_factor), dtype=F32, device=dev)
+    thr = torch.tensor(float(min_threshold), dtype=F32, device=dev)
+    counts_s = counts_flat.to(F32) * s
+    bg = bg_flat.to(F32)
+    ones = torch.ones((length, 4), dtype=F32, device=dev)
+    n = 4 ** length
+    M = pwms.shape[0]
+
+    pwm = pwms.to(F32).clone()
+    iters = torch.zeros(M, dtype=torch.int32, device=dev)
+    change = torch.full((M,), float(length), dtype=F32, device=dev)
+    active = (change > thr) & (iters < max_iterations)
+    while bool(active.any()):
+        idx = torch.nonzero(active)[:, 0]
+        old = pwm[idx]                                   # [A, W, 4]
+        A = old.shape[0]
+        # prob[id] = prod_p pwm[p][digit_p]: the same left-to-right f32
+        # multiply chain as the reference's recursive descent
+        # (src/peng.cpp:180-197) — bit-equal per entry
+        prob = torch.ones((A, n), dtype=F32, device=dev)
+        for pos in range(length):
+            lo = 4 ** pos
+            prob = (prob.reshape(A, n // (4 * lo), 4, lo)
+                    * old[:, pos].reshape(A, 1, 4, 1)).reshape(A, n)
+        # the reference's exact op order (src/peng.cpp:118-127):
+        # odds = prob/bg, then count*s / (1 + s/odds)
+        odds = prob / bg
+        del prob
+        r = counts_s / (s / odds + 1.0)
+        del odds
+        new = ft.all_marginals(r, ones, length)          # [A, W, 4]
+        del r
+        # normalize_pwm sums each row sequentially
+        # (src/iupac_pattern.cpp:291-303)
+        rs = ((new[..., 0] + new[..., 1]) + new[..., 2]) + new[..., 3]
+        new = new / rs[..., None]
+        # change: sequential f32 fold in (p, a) order (src/peng.cpp:131-137)
+        d = (new - old).abs().reshape(A, -1)
+        ch = torch.zeros(A, dtype=F32, device=dev)
+        for i in range(4 * length):
+            ch = ch + d[:, i]
+        pwm[idx] = new
+        change[idx] = ch
+        iters[idx] += 1
+        active = (change > thr) & (iters < max_iterations)
+    return pwm, iters

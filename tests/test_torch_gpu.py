@@ -1,6 +1,7 @@
 """Card-only tests of the port: the CUDA histogram kernel against its
-plain PyTorch version, the stream count on the card against the same
-count on the CPU, and the CLI through the kernel.  Every test skips
+plain PyTorch version, the stream count and the post-count programs
+(flat tables, stats, walks, adv-PWM, EM) on the card against the same
+programs on the CPU, and the CLI through the kernel.  Every test skips
 without a CUDA device.
 
 This file imports neither jax nor the reference package, so that it runs
@@ -8,8 +9,12 @@ on a machine without them:
 
     python -m pytest --noconftest tests/test_torch_gpu.py -q
 
-Tolerance: bit-identical (integer counts); MEME output byte-identical to
-the golden files (phases 2-5 run on the byte-exact host twins).
+Tolerances: counts, integer contractions, the background tables,
+adv-PWMs and the walks' integer trace fields bit-identical; walk
+aggregates within 1e-6 relative and scores within 2e-6 relative + 2e-5
+absolute; EM PWMs within 5e-6 with identical iteration counts; MEME
+output within the ENGINE_CASES tolerance of the golden files (5e-6
+absolute + 1e-6 relative).
 """
 
 import os
@@ -20,6 +25,9 @@ import torch
 
 from peng_motif_tpu_torch import engine
 from peng_motif_tpu_torch.cli import main
+from peng_motif_tpu_torch.ops import climb as tcl
+from peng_motif_tpu_torch.ops import em as tem
+from peng_motif_tpu_torch.ops import flat_tables as tft
 from peng_motif_tpu_torch.ops import histogram as th
 from peng_motif_tpu_torch.ops import stream_count as tsc
 
@@ -112,6 +120,18 @@ def test_stream_count_on_card_matches_cpu(wire2, cuda):
         assert torch.equal(a, b)
 
 
+def _within_tol(got, want, tol=5e-6, rel=1e-6):
+    a_lines, b_lines = got.splitlines(), want.splitlines()
+    assert len(a_lines) == len(b_lines)
+    for a, b in zip(a_lines, b_lines):
+        ta, tb = a.split(), b.split()
+        assert len(ta) == len(tb), (a, b)
+        for x, y in zip(ta, tb):
+            if x != y:
+                assert abs(float(x) - float(y)) <= tol + rel * abs(float(y)), \
+                    (a, b)
+
+
 @pytest.mark.parametrize("stem,args", [
     ("mafk100_w8", ["MafK_100seqs.fasta", "-w", "8"]),
     ("mafk_w8", ["MafK.fasta", "-w", "8"]),
@@ -124,6 +144,132 @@ def test_cli_golden_through_kernel(stem, args, cuda, tmp_path):
     assert main([os.path.join(GOLDEN_DIR, args[0])] + args[1:]
                 + ["--device", "cuda", "-o", str(meme)]) == 0
     assert engine.LAST_ENGINE_USED == "gpu"
+    assert engine.LAST_CLIMB_ENGINE == engine.LAST_PWM_ENGINE == "device"
     assert th.LAUNCHES > 0
     with open(os.path.join(GOLDEN_DIR, f"{stem}.meme")) as g:
-        assert meme.read_text() == g.read()
+        _within_tol(meme.read_text(), g.read())
+
+
+# -- post-count programs, card against CPU ----------------------------------
+
+
+def _rc(ids, W):
+    rc = np.zeros_like(ids)
+    for p in range(W):
+        rc |= (3 - ((ids >> (2 * p)) & 3)) << (2 * (W - 1 - p))
+    return rc
+
+
+def _walk_inputs(W, seed, n_seeds=10, ltot=300_000):
+    """Mirrored counts over a random background with a planted motif;
+    seeds the top z-scores (the inputs of tests/test_torch_climb.py)."""
+    rng = np.random.default_rng(seed)
+    n = 4 ** W
+    ids = np.arange(n)
+    bgp = rng.uniform(0.5, 1.5, size=n)
+    bgp = (bgp / bgp.sum()).astype(np.float32)
+    counts = rng.poisson(bgp * np.float32(ltot)).astype(np.int64)
+    motif = rng.integers(0, 4, size=W)
+    mism = np.zeros(n, dtype=np.int64)
+    for p in range(W):
+        mism += ((ids >> (2 * p)) & 3) != motif[p]
+    counts += np.where(mism == 0, 400, np.where(mism == 1, 60, 0))
+    counts = counts + counts[_rc(ids, W)]
+    bgp = (bgp + bgp[_rc(ids, W)]).astype(np.float32)
+    expected = (bgp * np.float32(ltot)).astype(np.float32)
+    z = (counts - expected) / np.sqrt(expected)
+    seeds = np.argsort(-z, kind="stable")[:n_seeds].astype(np.int32)
+    return counts.astype(np.int32), expected, bgp, seeds
+
+
+@pytest.mark.parametrize("W", [6, 10])
+def test_flat_tables_on_card_match_cpu(W, cuda):
+    rng = np.random.default_rng(W)
+    flat = rng.integers(0, 1000, size=(2, 4 ** W)).astype(np.float32)
+    masks = rng.integers(0, 2, size=(3, W, 4)).astype(np.float32)
+    for fn in ("sep_sum_flat", "all_marginals", "pair_marginals"):
+        got = [getattr(tft, fn)(torch.from_numpy(flat).to(d)[:, None],
+                                torch.from_numpy(masks).to(d), W).cpu()
+               for d in (cuda, "cpu")]
+        assert torch.equal(*got), fn
+    v = [rng.uniform(0.05, 1, size=4 ** (k + 1)).astype(np.float32)
+         for k in range(4)]
+    for order in range(4):
+        got = [tft.aggregate_double_strand_flat(tft.bg_prob_flat(
+            [torch.from_numpy(x).to(d) for x in v], W, order), W).cpu()
+            for d in (cuda, "cpu")]
+        assert torch.equal(*got), order
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+@pytest.mark.parametrize("score_type", [0, 1, 2])
+@pytest.mark.parametrize("both", [True, False], ids=["both", "plus"])
+def test_walks_on_card_match_cpu(both, score_type, wide, cuda):
+    W = 8
+    counts, expected, bgp, seeds = _walk_inputs(W, seed=score_type)
+    outs = {}
+    for d in (cuda, "cpu"):
+        t = [torch.from_numpy(a).to(d) for a in (counts, expected, bgp,
+                                                 seeds)]
+        out = tcl.walks_program(
+            *t, np.float32(1000), np.float32(5), W, both, score_type,
+            wide=wide)
+        outs[str(d)] = {k: (x.cpu().numpy() if torch.is_tensor(x) else x)
+                        for k, x in out.items()}
+    got, want = outs[str(cuda)], outs["cpu"]
+    assert got["n_steps"] == want["n_steps"] >= 2
+    assert bool(got["overflow"]) == bool(want["overflow"])
+    for k in ("improved", "chosen_idx", "acc_idx", "acc_n", "chosen_counts",
+              "acc_counts", "init_counts"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    for k in ("chosen_expected", "chosen_bgp", "acc_expected",
+              "init_expected", "init_bgp"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-6, err_msg=k)
+    for k in ("chosen_score", "acc_score", "init_score"):
+        np.testing.assert_allclose(got[k], want[k], rtol=2e-6, atol=2e-5,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+@pytest.mark.parametrize("both", [True, False], ids=["both", "plus"])
+def test_stats_and_adv_pwm_on_card_match_cpu(both, wide, cuda):
+    W = 10
+    rng = np.random.default_rng(3)
+    # narrow: every sum below 2**24, where the f32 chain is exact
+    counts = rng.integers(0, 60_000 if wide else 15,
+                          size=4 ** W).astype(np.int32)
+    fix_ids = rng.integers(0, 4 ** W, size=64).astype(np.int32)
+    fix_dv = rng.integers(-2, 3, size=64).astype(np.int32)
+    v = [rng.uniform(0.05, 1, size=4 ** (k + 1)).astype(np.float32)
+         for k in range(3)]
+    dig = rng.integers(0, 11, size=(20, W)).astype(np.int32)
+    outs = {}
+    for d in (cuda, "cpu"):
+        st = engine.stats_program(
+            engine.resident_state(counts, 5_000_000, fix_ids, fix_dv, v, d),
+            W, 1, 2, both)
+        pwm = engine.adv_pwm_program(torch.from_numpy(dig), st["counts"],
+                                     st["bgp"][:4].contiguous(), 10, W, both,
+                                     wide=wide)
+        outs[str(d)] = [t.cpu() for t in list(st.values()) + [pwm]]
+    for a, b in zip(outs[str(cuda)], outs["cpu"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("W", [8, 10])
+def test_em_on_card_matches_cpu(W, cuda):
+    rng = np.random.default_rng(W)
+    n = 4 ** W
+    counts = rng.poisson(20, size=n).astype(np.float32)
+    counts[rng.integers(0, n, size=50)] += 2000
+    bg = np.full(n, 2.0 / n, np.float32)
+    pwms = rng.dirichlet(np.ones(4), size=(12, W)).astype(np.float32)
+    outs = {}
+    for d in (cuda, "cpu"):
+        pwm, it = tem.em_optimize_flat(
+            torch.from_numpy(pwms).to(d), torch.from_numpy(counts).to(d),
+            torch.from_numpy(bg).to(d), 1e4, 0.08, 10, W)
+        outs[str(d)] = (pwm.cpu().numpy(), it.cpu().numpy())
+    np.testing.assert_array_equal(outs[str(cuda)][1], outs["cpu"][1])
+    np.testing.assert_allclose(outs[str(cuda)][0], outs["cpu"][0], rtol=0,
+                               atol=5e-6)

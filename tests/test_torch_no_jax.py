@@ -1,7 +1,7 @@
 """The port stands alone: with ``jax``, ``jaxlib`` and the reference
 package ``peng_motif_tpu`` made unimportable, every module of
 ``peng_motif_tpu_torch`` imports and its CLI reproduces the golden
-output.  Runs in a subprocess, so the test process's own imports do not
+output (within the ENGINE_CASES tolerance of tests/test_engine_tpu.py).  Runs in a subprocess, so the test process's own imports do not
 count."""
 
 import os
@@ -9,6 +9,7 @@ import subprocess
 import sys
 
 from conftest import GOLDEN_DIR
+from test_torch_engine import _assert_within_tol, _read
 
 REPO = os.path.dirname(os.path.dirname(GOLDEN_DIR))
 
@@ -67,6 +68,5 @@ sys.exit(rc)
         "--device", "cpu", "-o", meme, "-j", js)
     assert proc.returncode == 0, proc.stderr
     for got, stem in ((meme, "mafk100_w8.meme"), (js, "mafk100_w8.json")):
-        with open(got, "rb") as f, \
-                open(os.path.join(GOLDEN_DIR, stem), "rb") as g:
-            assert f.read() == g.read(), stem
+        _assert_within_tol(_read(got), _read(os.path.join(GOLDEN_DIR, stem)),
+                           stem, 5e-6)
