@@ -14,8 +14,9 @@ caught):
   3. kernel  — the histogram kernel against its plain PyTorch version
                (torch.bincount), bit-identical, at ~50M ids for six table
                sizes and on four edge inputs, both timed with CUDA events;
-  4. golden  — the port's CLI with --device cuda on the golden MafK
-               inputs (MafK -w 8, -w 10; MafK_100seqs -w 8, -w 12)
+  4. golden  — the port's device engine (--device cuda --engine tpu) on
+               the golden MafK inputs (MafK -w 8, -w 10; MafK_100seqs -w 8,
+               -w 12)
                against the reference's MEME files (5e-6 absolute + 1e-6
                relative, identical structure), every 4**W-table phase on
                the device (LAST_CLIMB_ENGINE == LAST_PWM_ENGINE ==
@@ -35,7 +36,25 @@ caught):
                count (f64 "wide" chain, ltot >= 2**24): the walk trace's
                integer fields identical, its floats within 1e-6 relative
                (scores 2e-6 + 2e-5), the adv-PWMs bit-identical, the EM
-               PWMs within 5e-6 with identical iteration counts.
+               PWMs within 5e-6 with identical iteration counts;
+  7. exact   — the exact engine (--engine exact --device cuda): MafK -w 8,
+               -w 10 and MafK_100seqs -w 12 with the host count (within
+               tolerance of the golden files; byte-identity printed) and
+               with the batch count forced onto the card
+               (PENG_COUNT_HOST_MAX_BASES=0: the kernel launches, MEME
+               bytes equal the host-count run's); the 51.2-Mbase corpus
+               at -w 10, host count against device count in turns
+               (identical table, ltot and MEME bytes; the kernel timed
+               against the plain version on the ids the main path handed
+               it); --engine tpu against --engine exact (51.2 Mbases -w
+               10: identical decisions with the float differences
+               printed, and with --no-em identical PWM cells — EM's sums
+               and the wide climb's f64 aggregates are the parts not in
+               the reference binary's order; at -w 12 on
+               MafK_100seqs and 51.2 Mbases the walls and the comparison
+               are printed, not asserted); a checkpoint saved by the device engine and
+               loaded by both engines; one --profile run whose Chrome
+               trace holds the histogram kernel.
 
 The last two lines are the kernels' JSON record and the run's result,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -90,15 +109,42 @@ def within_tolerance(got: str, want: str) -> bool:
     return True
 
 
-def run_cli(argv):
-    """The port's CLI in-process; stdout (the climb log) is discarded.
-    Returns (wall time in seconds, {phase: ms} of the --timing report
-    when ``argv`` asks for it)."""
+def compare_outputs(got: str, want: str):
+    """(decisions identical, max absolute difference of the PWM cells,
+    max relative difference of the motif-header floats).  Decisions:
+    identical line/token structure with every non-numeric and every
+    integer token (motif strings, widths, nsites) equal."""
+    a_lines, b_lines = got.splitlines(), want.splitlines()
+    same, d_cell, d_hdr = len(a_lines) == len(b_lines), 0.0, 0.0
+    for a, b in zip(a_lines, b_lines):
+        ta, tb = a.split(), b.split()
+        same &= len(ta) == len(tb)
+        for x, y in zip(ta, tb):
+            if x == y:
+                continue
+            try:
+                fx, fy = float(x), float(y)
+            except ValueError:
+                same = False
+                continue
+            same &= "." in x + y or "e" in x + y
+            if a.startswith("letter-probability"):
+                d_hdr = max(d_hdr, abs(fx - fy) / max(abs(fy), 1e-30))
+            else:
+                d_cell = max(d_cell, abs(fx - fy))
+    return same, d_cell, d_hdr
+
+
+def run_cli(argv, stdout=None):
+    """The port's CLI in-process; stdout (the climb log) goes to the
+    ``stdout`` stream when given and is discarded otherwise.  Returns
+    (wall time in seconds, {phase: ms} of the --timing report when
+    ``argv`` asks for it)."""
     from peng_motif_tpu_torch.cli import main
 
     err = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()), \
+    with contextlib.redirect_stdout(stdout or io.StringIO()), \
             contextlib.redirect_stderr(err):
         rc = main(argv)
     wall = time.perf_counter() - t0
@@ -206,6 +252,64 @@ class Recorder:
         finally:
             engine._count_phase, engine._deliver_bg = real_phase, real_deliver
             stream_count.histogram = real_hist
+
+
+@contextlib.contextmanager
+def count_on(where):
+    """The exact engine's count on the host (the default) or, for
+    ``where == "device"``, forced onto the card's batch count
+    (PENG_COUNT_HOST_MAX_BASES=0)."""
+    key = "PENG_COUNT_HOST_MAX_BASES"
+    old = os.environ.pop(key, None)
+    if where == "device":
+        os.environ[key] = "0"
+    try:
+        yield
+    finally:
+        os.environ.pop(key, None)
+        if old is not None:
+            os.environ[key] = old
+
+
+class ExactRecorder:
+    """Wraps the exact engine's count (ops/counting.CountJob) and its
+    batch count's histogram to keep what one run computed: the count
+    table and ltot, the wall from the count's start to its result, and
+    the first input handed to the histogram."""
+
+    @contextlib.contextmanager
+    def active(self):
+        from peng_motif_tpu_torch.ops import counting
+
+        job_cls = counting.CountJob
+        real_init, real_finish = job_cls.__init__, job_cls.finish
+        real_hist = counting.histogram
+        self.counts = self.ltot = self.hist_input = None
+        self.count_s = 0.0
+        starts = []
+
+        def init(job, *a, **k):
+            starts.append(time.perf_counter())
+            real_init(job, *a, **k)
+
+        def finish(job):
+            out = real_finish(job)
+            self.count_s += time.perf_counter() - starts.pop()
+            self.counts, self.ltot = out
+            return out
+
+        def histogram(ids, inc, n_bins):
+            if self.hist_input is None:
+                self.hist_input = (ids.clone(), inc.clone(), n_bins)
+            return real_hist(ids, inc, n_bins)
+
+        job_cls.__init__, job_cls.finish = init, finish
+        counting.histogram = histogram
+        try:
+            yield self
+        finally:
+            job_cls.__init__, job_cls.finish = real_init, real_finish
+            counting.histogram = real_hist
 
 
 class ChainRecorder:
@@ -345,6 +449,208 @@ def same_record(a, b):
             and all(np.array_equal(x, y) for x, y in zip(a.bg, b.bg)))
 
 
+def decisions(log: str):
+    """The decision lines of a run's stdout: each seed's climb result,
+    the filter's selection and the merges."""
+    return [ln for ln in log.splitlines() if ln.startswith(
+        ("optimization:", "selected iupac pattern:", "merge:"))]
+
+
+def compare_engines(label, tpu, exact):
+    """Print how the device engine's run ``tpu`` and the exact engine's
+    run ``exact`` (each (MEME bytes, stdout)) compare; returns (same
+    decisions, max PWM-cell difference)."""
+    a, b = tpu[0].decode(), exact[0].decode()
+    same, d_cell, d_hdr = compare_outputs(a, b)
+    dec_a, dec_b = decisions(tpu[1]), decisions(exact[1])
+    n_diff = sum(x != y for x, y in zip(dec_a, dec_b)) + abs(
+        len(dec_a) - len(dec_b))
+    same &= n_diff == 0
+    print(f"  {label}, tpu vs exact: decisions identical {same} "
+          f"({n_diff} of {len(dec_b)} decision lines differ), within "
+          f"tolerance {within_tolerance(a, b)}, byte-identical {a == b}, "
+          f"max PWM-cell difference {d_cell:.3g}, max header difference "
+          f"{d_hdr:.3g} relative", flush=True)
+    return same, d_cell
+
+
+def read_bytes(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def run_exact_phase(tmp, large_fasta):
+    """Phase 7 (see the module docstring).  Returns the exact engine's
+    batch-count kernel record: launches in its main-path run, kernel and
+    plain ms on that run's histogram input, max abs error."""
+    import numpy as np
+
+    from peng_motif_tpu_torch import engine
+    from peng_motif_tpu_torch.ops import histogram as H
+
+    rec = {"max_abs_err": 0}
+
+    def cli(argv, out):
+        log = io.StringIO()
+        wall, timing = run_cli(argv + ["--device", "cuda", "--timing", "-o",
+                                       out], log)
+        return wall, timing, read_bytes(out), log.getvalue()
+
+    def fmt(timing):
+        return ", ".join(f"{k} {v:.1f} ms" for k, v in timing.items())
+
+    with phase("exact engine: golden inputs, host and device count"):
+        host_memes = {}
+        cases = [("mafk_w8", "MafK.fasta", "8"),
+                 ("mafk_w10", "MafK.fasta", "10"),
+                 ("mafk100_w12", "MafK_100seqs.fasta", "12")]
+        for where in ("host", "device"):
+            for stem, fa, w in cases:
+                before = H.LAUNCHES
+                with count_on(where):
+                    wall, timing, got, _ = cli(
+                        [os.path.join(GOLDEN, fa), "-w", w, "--engine",
+                         "exact"], os.path.join(tmp, f"{stem}_{where}.meme"))
+                n = H.LAUNCHES - before
+                want = read_bytes(os.path.join(GOLDEN, f"{stem}.meme"))
+                assert engine.LAST_ENGINE_USED == "exact"
+                print(f"  {stem} {where} count: wall {wall:.3f} s, "
+                      f"byte-identical to golden {got == want}, histogram "
+                      f"launches {n}; --timing: {fmt(timing)}", flush=True)
+                if where == "host":
+                    assert within_tolerance(got.decode(), want.decode()), \
+                        f"{stem}: exact engine outside the tolerance"
+                    assert n == 0, f"{stem}: host count launched the kernel"
+                    host_memes[stem] = got
+                else:
+                    assert n > 0, f"{stem}: device count launched no kernel"
+                    assert got == host_memes[stem], \
+                        f"{stem}: device-count MEME != host-count MEME"
+
+    with phase("exact engine: 51.2 Mbases -w 10, host vs device count"):
+        recs, memes, logs, walls = {}, {}, {}, {"host": [], "device": []}
+        for where in ("host", "device", "device", "host"):
+            r = ExactRecorder()
+            with count_on(where), r.active():
+                if where == "device" and "launches" not in rec:
+                    H.LAUNCHES = 0  # the exact engine's main-path run
+                wall, timing, got, log = cli(
+                    [large_fasta, "-w", "10", "--engine", "exact"],
+                    os.path.join(tmp, f"exact_large_{where}.meme"))
+                if where == "device" and "launches" not in rec:
+                    rec["launches"] = H.LAUNCHES
+            assert engine.LAST_ENGINE_USED == "exact"
+            assert memes.setdefault(where, got) == got
+            logs.setdefault(where, log)
+            recs.setdefault(where, r)
+            walls[where].append(wall)
+            print(f"  w10 {where:>6} count: wall {wall:.3f} s, count "
+                  f"{r.count_s:.3f} s, ltot {r.ltot}; --timing: "
+                  f"{fmt(timing)}", flush=True)
+        for where, ws in walls.items():
+            print(f"  w10 {where:>6} count, mean of 2: wall "
+                  f"{sum(ws) / len(ws):.3f} s", flush=True)
+        print(f"  w10 exact-engine main-path histogram launches: "
+              f"{rec['launches']}", flush=True)
+        assert rec["launches"] > 0, "the exact engine launched no kernel"
+        assert np.array_equal(recs["host"].counts, recs["device"].counts)
+        assert recs["host"].ltot == recs["device"].ltot
+        assert memes["host"] == memes["device"], "w10: MEME bytes differ"
+        print("  w10 host vs device count: count table, ltot and MEME bytes "
+              "identical", flush=True)
+        ids, inc, n_bins = recs["device"].hist_input
+        k_ms, p_ms, same, err = time_pair(ids, inc, n_bins)
+        rec.update(ms=k_ms, plain_ms=p_ms, max_abs_err=err)
+        print(f"  batch-count input n_bins={n_bins} n={ids.numel()} "
+              f"counted={int(inc.sum())}: kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, bit-identical {same}", flush=True)
+        assert same, "kernel != plain on the exact engine's input"
+        del ids, inc, recs
+        # the device engine against the exact engine.  Two of its sums
+        # are not the reference binary's: EM (the native EM folds each
+        # PWM cell over 4**W/4 ids in ascending order in f32, the device
+        # sums in tree order) and, at ltot >= 2**24, the climb's f64
+        # aggregates (the native folds them in f32), which move the
+        # motifs' log(Pval) by a few f32 ulps of their expected counts
+        # times nsites.  So the decisions are held identical, the float
+        # differences printed, and with --no-em every PWM cell identical.
+        runs = {}
+        for em in ("", "--no-em"):
+            for eng in ("tpu", "exact"):
+                if eng == "exact" and not em:
+                    runs[eng, em] = memes["host"], logs["host"]
+                    continue
+                _, timing, got, log = cli(
+                    [large_fasta, "-w", "10", "--engine", eng]
+                    + ([em] if em else []),
+                    os.path.join(tmp, f"cmp_{eng}{em}.meme"))
+                runs[eng, em] = got, log
+                print(f"  w10 {em} --engine {eng}: --timing: {fmt(timing)}",
+                      flush=True)
+        same, _ = compare_engines("w10", runs["tpu", ""], runs["exact", ""])
+        assert same, "w10: the engines' decisions differ"
+        same, d_cell = compare_engines("w10 --no-em", runs["tpu", "--no-em"],
+                                       runs["exact", "--no-em"])
+        assert same and d_cell == 0, "w10 --no-em: the engines' PWMs differ"
+
+    with phase("exact engine: W = 12, device engine vs exact engine"):
+        for label, fa in (("mafk100_w12",
+                           os.path.join(GOLDEN, "MafK_100seqs.fasta")),
+                          ("large_w12", large_fasta)):
+            runs, walls = {}, {"tpu": [], "exact": []}
+            for eng in ("tpu", "exact", "exact", "tpu"):
+                wall, timing, got, log = cli(
+                    [fa, "-w", "12", "--engine", eng],
+                    os.path.join(tmp, f"{label}_{eng}.meme"))
+                assert engine.LAST_ENGINE_USED == (
+                    "gpu" if eng == "tpu" else "exact")
+                runs.setdefault(eng, (got, log))
+                walls[eng].append(wall)
+                print(f"  {label} --engine {eng:>5}: wall {wall:.3f} s; "
+                      f"--timing: {fmt(timing)}", flush=True)
+            print(f"  {label}: walls tpu {walls['tpu']}, exact "
+                  f"{walls['exact']}", flush=True)
+            compare_engines(label, runs["tpu"], runs["exact"])
+
+    with phase("checkpoint round trip and --profile"):
+        mafk = os.path.join(GOLDEN, "MafK.fasta")
+        ck = os.path.join(tmp, "ckpt")
+        golden = read_bytes(os.path.join(GOLDEN, "mafk_w8.meme"))
+        _, _, saved, _ = cli([mafk, "-w", "8", "--engine", "tpu",
+                           "--save-checkpoint", ck],
+                          os.path.join(tmp, "ck_save.meme"))
+        assert engine.LAST_ENGINE_USED == "gpu"
+        before = H.LAUNCHES
+        _, _, loaded, _ = cli([mafk, "-w", "8", "--engine", "tpu",
+                            "--load-checkpoint", ck],
+                           os.path.join(tmp, "ck_tpu.meme"))
+        assert engine.LAST_ENGINE_USED == "gpu"
+        assert H.LAUNCHES == before, "a resumed run counted the input"
+        assert within_tolerance(loaded.decode(), golden.decode())
+        _, _, exact, _ = cli([mafk, "-w", "8", "--engine", "exact",
+                           "--load-checkpoint", ck],
+                          os.path.join(tmp, "ck_exact.meme"))
+        assert engine.LAST_ENGINE_USED == "exact"
+        assert exact == host_memes["mafk_w8"], "exact resume != exact run"
+        print(f"  saved by --engine tpu; loaded by tpu: within tolerance, "
+              f"identical to the saving run {loaded == saved}; loaded by "
+              f"exact: identical to the exact run", flush=True)
+        trace_dir = os.path.join(tmp, "trace")
+        wall, _, _, _ = cli([mafk, "-w", "8", "--engine", "tpu", "--profile",
+                          trace_dir], os.path.join(tmp, "profiled.meme"))
+        with open(os.path.join(trace_dir, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        hist = [e for e in kernels if "hist_" in e.get("name", "")]
+        busy_us = sum(e.get("dur", 0) for e in kernels)
+        print(f"  --profile MafK -w 8 --engine tpu: wall {wall:.3f} s, "
+              f"{len(events)} trace events, {len(kernels)} kernels "
+              f"({busy_us / 1e3:.3f} ms), histogram kernels {len(hist)}: "
+              f"{sorted({e['name'] for e in hist})}", flush=True)
+        assert hist, "the profiler trace holds no histogram kernel"
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -444,7 +750,7 @@ def main() -> int:
                 with crec.active():
                     wall, timing = run_cli([
                         os.path.join(GOLDEN, fasta), "-w", w, "--device",
-                        "cuda", "--timing", "-o", out])
+                        "cuda", "--engine", "tpu", "--timing", "-o", out])
                 with open(out) as f, \
                         open(os.path.join(GOLDEN, f"{stem}.meme")) as g:
                     got, want = f.read(), g.read()
@@ -469,8 +775,9 @@ def main() -> int:
                       f"ltot {inp['ltot']}, wide {inp['wide']}", flush=True)
                 chain_inputs[stem] = inp
 
-    with phase("51.2-Mbase corpus"), \
-            tempfile.TemporaryDirectory() as tmp:
+    big = tempfile.TemporaryDirectory()
+    tmp = big.name
+    with phase("51.2-Mbase corpus"):
         fasta = os.path.join(tmp, "large.fasta")
         t0 = time.perf_counter()
         n_bases = write_large_corpus(fasta)
@@ -488,7 +795,8 @@ def main() -> int:
                 if launches is None:
                     H.LAUNCHES = 0  # the main-path run starts here
                 wall, timing = run_cli([fasta, "-w", "10", "--device",
-                                        "cuda", "--timing", "-o", out])
+                                        "cuda", "--engine", "tpu", "--timing",
+                                        "-o", out])
                 if launches is None:
                     launches = H.LAUNCHES
                     chain_inputs["large_w10"] = crec.inputs()
@@ -573,11 +881,19 @@ def main() -> int:
                   "tolerance; adv-PWMs bit-identical; EM within 5e-6, "
                   "same iterations", flush=True)
 
+    exact = run_exact_phase(big.name, fasta)
+    max_err = max(max_err, exact["max_abs_err"])
+    big.cleanup()
+
+    # launches / ms / plain_ms: the device engine's main path (51.2 Mbases
+    # -w 10, the 4**10 table); exact_*: the exact engine's batch device
+    # count on the same corpus
     print(json.dumps({"kernels": [{
         "name": "histogram", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms}]}),
-        flush=True)
+        "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
+        "exact_launches": exact["launches"], "exact_ms": exact["ms"],
+        "exact_plain_ms": exact["plain_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,9 +3,11 @@
 Mirrors the reference CLI surface exactly (reference:
 src/Global.cpp:77-375, src/main.cpp:18-84), including its hand-rolled
 parsing behaviors: unknown options warn and are ignored; odd pattern
-lengths are rejected with exit code 4.  The port adds ``--device``; the
-reference package's extensions that are not ported yet exit with an
-error instead of being ignored.
+lengths are rejected with exit code 4.  The port adds ``--device``; of
+the reference package's extensions it runs ``--engine``, the checkpoint
+flags, ``--profile`` (a torch.profiler trace) and ``--timing``, and the
+multi-device flags, not ported yet, exit with an error instead of being
+ignored.
 """
 
 from __future__ import annotations
@@ -13,15 +15,14 @@ from __future__ import annotations
 import sys
 
 from . import __version__
+from .checkpoint import CheckpointError
 from .device import DEVICES, DeviceUnavailable, resolve_device
-from .engine import NotPortedError
 from .io.fasta import FastaFormatError, load_sequence_set
 from .models.background import BackgroundModel
-from .ops.climb import ClimbOverflow
 from .output import write_json, write_meme
 from .pattern_tables import OptimizationScore, Strand
-from .pipeline import Peng, PengParameters
-from .utils.logging_utils import set_verbosity
+from .pipeline import Peng, PengParameters, resolve_engine
+from .utils.logging_utils import set_verbosity, torch_profile
 
 HELP = """
 =================================================================
@@ -111,14 +112,21 @@ HELP = """
 
  PyTorch/CUDA port extensions:
 
-      --device <cuda|cpu>      device of the count phase (default cuda;
-                               cuda without a CUDA device is an error)
-      --engine <auto|tpu>      both run the device engine (tpu is kept
-                               as an alias for flag compatibility)
+      --device <cuda|cpu>      device of the 4**W-table phases (default
+                               cuda; cuda without a CUDA device is an
+                               error)
+      --engine <tpu|exact|auto>
+                               tpu: the device engine on --device;
+                               exact: byte-parity host engine;
+                               auto (default): tpu on --device cuda for
+                               -w < 12, exact otherwise
+      --profile <TRACE_DIR>    write a torch.profiler Chrome trace
+                               (TRACE_DIR/trace.json)
+      --save-checkpoint <DIR>  persist count table + background model
+      --load-checkpoint <DIR>  resume from a persisted count table
       --timing                 print per-phase wall-clock timings
 
- Not yet ported (rejected with an error): --engine exact, --devices,
- --profile, --save-checkpoint, --load-checkpoint, --num-processes,
+ Not yet ported (rejected with an error): --devices, --num-processes,
  --process-id, --coordinator.
 
 =================================================================
@@ -134,8 +142,7 @@ def _need_value(args, i, flag):
 
 
 # the reference package's extensions that this package does not run yet
-_NOT_PORTED = ("--devices", "--profile", "--save-checkpoint",
-               "--load-checkpoint", "--num-processes", "--process-id",
+_NOT_PORTED = ("--devices", "--num-processes", "--process-id",
                "--coordinator")
 
 
@@ -187,6 +194,10 @@ def parse_args(argv):
         "verbosity": 2,
         "threads": 1,
         "device": "cuda",
+        "engine": "auto",
+        "profile": None,
+        "save_checkpoint": None,
+        "load_checkpoint": None,
         "timing": False,
     }
 
@@ -273,15 +284,19 @@ def parse_args(argv):
             print(HELP)
             sys.exit(0)
         elif arg == "--engine":
-            # auto and tpu both run the device engine
             val = _need_value(argv, i, arg); i += 1
-            if val == "exact":
-                _not_ported("--engine exact")
-            if val not in ("tpu", "auto"):
+            if val not in ("tpu", "exact", "auto"):
                 print(HELP)
                 print("Unknown expression following --engine",
                       file=sys.stderr)
                 sys.exit(4)
+            cfg["engine"] = val
+        elif arg == "--profile":
+            cfg["profile"] = _need_value(argv, i, arg); i += 1
+        elif arg == "--save-checkpoint":
+            cfg["save_checkpoint"] = _need_value(argv, i, arg); i += 1
+        elif arg == "--load-checkpoint":
+            cfg["load_checkpoint"] = _need_value(argv, i, arg); i += 1
         elif arg == "--device":
             val = _need_value(argv, i, arg); i += 1
             if val not in DEVICES:
@@ -335,13 +350,17 @@ def main(argv=None):
     bg_model_order = max(cfg["bg_model_order"], cfg["max_opt_bg_model_order"])
     # defer: the device engine fuses the (k+1)-mer scan into the count
     # (ops/stream_count.stream_bg_counts) and delivers the counts — no
-    # host corpus scan at all.  Only when the bg corpus IS the input
-    # corpus and the fused-histogram gates hold (the engine re-checks and
-    # falls back to a threaded host scan otherwise).
+    # host corpus scan at all.  Only when the device engine runs a count
+    # (no checkpoint), the bg corpus IS the input corpus and the
+    # fused-histogram gates hold (the engine re-checks and starts the
+    # threaded host scan otherwise, or on a fallback to the exact engine).
     defer_bg = (
         bg_path == cfg["input"]
         and bg_model_order <= 3
         and cfg["pattern_length"] >= 5  # fused bg needs ctx = 2(W-1) >= 8
+        and not cfg["load_checkpoint"]
+        and resolve_engine(cfg["engine"], device,
+                           cfg["pattern_length"]) == "tpu"
     )
     # lazy: the (k+1)-mer scan runs in a thread and overlaps the device
     # count (first .v access joins)
@@ -373,14 +392,20 @@ def main(argv=None):
         max_optimized_patterns=cfg["max_optimized_patterns"],
         max_merged_length=cfg["max_merged_length"],
         device=device,
+        engine=cfg["engine"],
+        save_checkpoint=cfg["save_checkpoint"],
+        load_checkpoint=cfg["load_checkpoint"],
+        threads=cfg["threads"] if cfg["threads"] > 1 else 0,
     )
 
     try:
-        result = peng.process(params)
-    except (NotPortedError, ClimbOverflow) as e:
+        with torch_profile(cfg["profile"], device):
+            result = peng.process(params)
+            peng.filter_redundancy(cfg["bit_factor_merge_threshold"],
+                                   result)
+    except CheckpointError as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1
-    peng.filter_redundancy(cfg["bit_factor_merge_threshold"], result)
 
     if cfg["output"]:
         write_meme(result, cfg["output"], bg_model.v[0], peng.iupac_profile)

@@ -21,6 +21,12 @@ counting to EM:
 Host z-scores, seed selection, filtering, merging and the redundancy
 filter stay on the host (native, byte-exact), as in the reference.
 
+Where the reference engine cannot guarantee the reference's semantics,
+it raises :class:`EngineFallback` and pipeline.Peng.process reruns the
+exact engine; the port raises it at the same four points
+(engine_tpu.py:741-743, :786-789, :1028-1030, :1141-1142): degenerate
+input, no usable checkpoint, ltot >= 2**31 and climb overflow.
+
 Parity contract (the reference engine's, engine_tpu.py:23-37): integer
 quantities (counts, ltot, seed selection, climb decisions and
 aggregates, adv-PWM cells) are identical; float statistics may differ in
@@ -44,6 +50,7 @@ from .alphabets import (
     digits_to_iupac_id,
     iupac_id_to_digits,
 )
+from .checkpoint import load_checkpoint, save_checkpoint
 from .models.background import bg_device_corrections
 from .models.motif import MIN_MERGE_OVERLAP, Motif
 from .native import (
@@ -54,7 +61,7 @@ from .native import (
     zscore_sort_prefix_indices,
 )
 from .ops import flat_tables as ft
-from .ops.climb import WalkTrace, replay_walks, run_walks
+from .ops.climb import ClimbOverflow, WalkTrace, replay_walks, run_walks
 from .ops.em import em_optimize_flat
 from .ops.stream_count import (
     bg_offset,
@@ -73,14 +80,17 @@ from .utils import numerics
 F32 = np.float32
 
 
-class NotPortedError(RuntimeError):
-    """A feature of the reference package that this package does not
-    run yet."""
+class EngineFallback(Exception):
+    """The device engine cannot guarantee the reference's semantics for
+    this run (degenerate input, no usable checkpoint, ltot >= 2**31,
+    climb overflow); the caller reruns the exact engine."""
 
 
-# what ran the last process_gpu call, reset at its entry: the engine
-# ("gpu" on a CUDA device, "cpu" on the CPU), and where the climb and
-# the PWM/EM phases ran ("device": the torch programs on that device)
+# what ran the last run, reset at the entry of pipeline.Peng.process:
+# the engine ("gpu" or "cpu" for the device engine on a CUDA device or
+# on the CPU, "exact" for the exact engine), and where the climb and the
+# PWM/EM phases ran ("device": the torch programs on that device;
+# "host": the exact engine's native phases)
 LAST_ENGINE_USED = None
 LAST_CLIMB_ENGINE = None
 LAST_PWM_ENGINE = None
@@ -182,10 +192,6 @@ def _count_phase(peng, W: int, both: bool, device):
         stream, lay, susp_np, both)
     ltot += ltot_delta
     np.add.at(counts_host, fix_ids, fix_dv)
-    if ltot >= (1 << 31):
-        raise NotPortedError(
-            f"ltot = {ltot} >= 2**31 (int32 count-table bound); the "
-            "wide-corpus path is not yet ported to peng_motif_tpu_torch")
     return counts_host, ltot, out[0], fix_ids, fix_dv
 
 
@@ -354,7 +360,7 @@ def _replay_climb(peng, params, trace: WalkTrace, selected, W: int
     return best_motifs
 
 
-def _default_pwm(peng, params, motif: Motif, W: int) -> np.ndarray:
+def default_pwm(peng, params, motif: Motif, W: int) -> np.ndarray:
     """Reference default-PWM quirk, reproduced faithfully: in default
     mode the per-motif base-pattern list is never populated
     (src/iupac_pattern.cpp:475-503 iterates the always-empty member
@@ -374,16 +380,16 @@ def _default_pwm(peng, params, motif: Motif, W: int) -> np.ndarray:
 
 def process_gpu(peng, params) -> List[Motif]:
     """Counterpart of Peng.process (src/peng.cpp:322-435) with every
-    4**W-table phase on ``params.device``.  Degenerate inputs (no
-    sequences, or all shorter than W) count nothing and run a zero table
-    through the same device chain."""
+    4**W-table phase on ``params.device``.  Raises EngineFallback where
+    the reference engine does."""
     global LAST_ENGINE_USED, LAST_CLIMB_ENGINE, LAST_PWM_ENGINE
-    LAST_ENGINE_USED = LAST_CLIMB_ENGINE = LAST_PWM_ENGINE = None
     device = torch.device(params.device)
 
     W = params.max_pattern_length
     both = peng.strand == Strand.BOTH_STRANDS
     sset = peng.sequence_set
+    if sset.n == 0 or sset.max_l < W:
+        raise EngineFallback("degenerate input")
     out = peng.out
     peng._status(f"Processing kmers of length {W}", leading_newline=False)
     peng._status("Finding overrepresented kmers (base patterns)",
@@ -396,14 +402,23 @@ def process_gpu(peng, params) -> List[Motif]:
     # selection (the z-score seed sort must reproduce libstdc++ tie
     # placement, reference: src/base_pattern.cpp:443-458) ----------------
     with peng.timer.phase("count"):
-        if sset.n == 0 or sset.max_l < W:
-            peng.bg_model.start_host_counting()
-            counts_host, ltot = np.zeros(4 ** W, dtype=np.int32), 0
+        if params.load_checkpoint:
+            loaded = load_checkpoint(params.load_checkpoint, W,
+                                     peng.strand.name)
+            if loaded is None:
+                raise EngineFallback("no usable checkpoint")
+            # the checkpointed table goes to the device as it is, with an
+            # empty fix-up (engine_tpu.py:778-796)
+            counts_host = np.asarray(loaded[0], dtype=np.int32)
+            ltot = int(loaded[1])
             counts_dev = counts_host
             fix_ids = fix_dv = np.zeros(0, dtype=np.int32)
         else:
             counts_host, ltot, counts_dev, fix_ids, fix_dv = _count_phase(
                 peng, W, both, device)
+        if ltot >= (1 << 31):
+            # int32 count-table bound
+            raise EngineFallback("ltot >= 2**31")
         # past 2**24 the f32 aggregation chains lose integer exactness;
         # the climb and adv-PWM switch to their f64 (wide) variants
         wide = ltot >= (1 << 24)
@@ -420,6 +435,10 @@ def process_gpu(peng, params) -> List[Motif]:
             z_host, counts_host, W, params.zscore_threshold,
             params.count_threshold, peng.strand == Strand.PLUS_STRAND,
             params.filter_neighbors)
+
+    if params.save_checkpoint:
+        save_checkpoint(params.save_checkpoint, W, peng.strand.name,
+                        counts_host, ltot, peng.bg_model)
 
     if not selected:
         print("No overrepresented seed patterns found. Stopping.", file=out)
@@ -442,11 +461,14 @@ def process_gpu(peng, params) -> List[Motif]:
     # host replays the sequential seen-set bookkeeping (reference:
     # src/peng.cpp:437-541; see ops/climb.py) ----------------------------
     with peng.timer.phase("optimize"):
-        trace = run_walks(
-            st["counts"], st["expected"], st["bgp"], selected, W, both,
-            params.opt_score_type.value, peng.n_sequences,
-            int(peng.n_sequences * params.enrich_pseudocount_factor),
-            wide=wide)
+        try:
+            trace = run_walks(
+                st["counts"], st["expected"], st["bgp"], selected, W, both,
+                params.opt_score_type.value, peng.n_sequences,
+                int(peng.n_sequences * params.enrich_pseudocount_factor),
+                wide=wide)
+        except ClimbOverflow as e:
+            raise EngineFallback(str(e)) from e
     LAST_CLIMB_ENGINE = "device"
     candidates = _replay_climb(peng, params, trace, selected, W)
 
@@ -473,7 +495,7 @@ def process_gpu(peng, params) -> List[Motif]:
                     state.v[0], params.pseudo_counts, W, both, wide=wide)
             else:
                 pwm0 = torch.from_numpy(np.stack(
-                    [_default_pwm(peng, params, m, W) for m in candidates]
+                    [default_pwm(peng, params, m, W) for m in candidates]
                 )).to(device)
             if params.use_em:
                 final, _iters = em_optimize_flat(

@@ -62,6 +62,25 @@ class SequenceSet:
     def total_bases(self) -> int:
         return int(self._lengths().sum())
 
+    def padded(self, pad_multiple: int = 128) -> np.ndarray:
+        """[N, Lmax'] uint8 batch, zero-padded (pad == undefined base, which
+        window validity treats exactly like the reference's sequence end)."""
+        max_l = self.max_l
+        if pad_multiple > 1:
+            max_l = ((max_l + pad_multiple - 1) // pad_multiple) * pad_multiple
+        out = np.zeros((self.n, max_l), dtype=np.uint8)
+        flat = getattr(self, "_flat_codes", None)
+        if flat is not None and flat.shape[0] == self.total_bases:
+            # vectorized fill from the contiguous parse buffer: the
+            # row-major mask enumerates exactly the concatenation order
+            lengths = self._lengths()
+            mask = np.arange(max_l)[None, :] < lengths[:, None]
+            out[mask] = flat
+            return out
+        for i, s in enumerate(self.sequences):
+            out[i, : len(s)] = s
+        return out
+
 
 def read_fasta(
     filepath: str,

@@ -22,6 +22,8 @@ last min(i,8)+1 positions) or v == 0.
 
 from __future__ import annotations
 
+import os
+import re
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -185,6 +187,49 @@ class BackgroundModel:
             vk = (g / s[:, None]).reshape(-1).astype(np.float32)
             v.append(vk)
         return v
+
+    # -- BaMM file format -------------------------------------------------
+
+    def write(self, directory: str) -> str:
+        """Write conditional probabilities in BaMM format
+        (reference: BackgroundModel.cpp:406-430).  Returns the file path."""
+        suffix = ".hbcp" if self.interpolate else ".hnbcp"
+        path = os.path.join(directory, (self.name or "bg") + suffix)
+        with open(path, "w") as f:
+            f.write(f"# K = {self.order}\n")
+            f.write("# A =" + "".join(f" {a:g}" for a in
+                                      self.alpha[: self.order + 1]) + "\n")
+            for k in range(self.order + 1):
+                f.write(" ".join(f"{x:.6e}" for x in self.v[k]) + "\n")
+        return path
+
+    @classmethod
+    def read(cls, path: str) -> "BackgroundModel":
+        """Read a BaMM .hbcp/.hnbcp file (reference:
+        BackgroundModel.cpp:94-164): the conditionals only, no counts."""
+        with open(path) as f:
+            m = re.match(r"#\s*K\s*=\s*(\d+)", f.readline())
+            if not m:
+                raise ValueError(f"Wrong BaMM format: {path}")
+            K = int(m.group(1))
+            alphas = [float(x) for x in f.readline().split("=")[1].split()]
+            v = []
+            for k in range(K + 1):
+                row = np.array([np.float32(x) for x in f.readline().split()],
+                               dtype=np.float32)
+                if row.shape[0] != 4 ** (k + 1):
+                    raise ValueError(f"Wrong BaMM format: {path}")
+                v.append(row)
+        model = cls.__new__(cls)
+        model.order = K
+        model.alpha = np.asarray(alphas, dtype=np.float32)
+        model.interpolate = path.endswith(".hbcp")
+        model.name = os.path.basename(path).rsplit(".", 1)[0]
+        model._count_thread = None
+        model._defer_sequences = None
+        model._n = None
+        model._v = v
+        return model
 
 
 def count_kmers(sequences: Sequence[np.ndarray], order: int) -> List[np.ndarray]:

@@ -35,6 +35,7 @@ _c_i32p = ctypes.POINTER(ctypes.c_int32)
 _c_i64p = ctypes.POINTER(ctypes.c_int64)
 _c_u8p = ctypes.POINTER(ctypes.c_uint8)
 _c_u32p = ctypes.POINTER(ctypes.c_uint32)
+_c_u64p = ctypes.POINTER(ctypes.c_uint64)
 
 
 def compile_library(src: str, so: str, cmd: List[str]) -> str:
@@ -106,6 +107,32 @@ def _declare(lib) -> None:
              _c_f32p, ctypes.POINTER(ctypes.c_int),
              ctypes.POINTER(ctypes.c_int)], None),
         "float_sort_indices_asc": ([_c_f32p, ctypes.c_uint64, _c_u32p], None),
+        # the exact engine (pipeline.Peng._process_exact, pattern_tables)
+        "count_rows_exact": ([_c_u8p, ctypes.c_int64, ctypes.c_int64,
+                              ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                              _c_i32p], ctypes.c_int64),
+        "pack_codes_native": ([_c_u8p, ctypes.c_int64, ctypes.c_int64,
+                               _c_u8p], None),
+        "dedup_fixup_rows": ([_c_u8p, ctypes.c_int64, ctypes.c_int64,
+                              ctypes.c_int, ctypes.c_int, _c_i64p, _c_i32p],
+                             ctypes.c_int64),
+        "zscore_sort_indices": ([_c_f32p, ctypes.c_uint64, _c_u32p], None),
+        "base_log_pvalues_table": ([_c_i32p, _c_f32p, ctypes.c_int64,
+                                    _c_f32p], None),
+        "base_opt_score": ([ctypes.c_int, ctypes.c_uint32, ctypes.c_float,
+                            ctypes.c_uint64, ctypes.c_uint32],
+                           ctypes.c_float),
+        "iupac_aggregate_exact": ([_c_i32p, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_int, _c_i32p, _c_f32p, _c_f32p,
+                                   _c_u64p, _c_f32p, _c_f32p], None),
+        "iupac_aggregate_score": ([_c_i32p, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_int, _c_i32p, _c_f32p, _c_f32p,
+                                   ctypes.c_int, ctypes.c_uint64,
+                                   ctypes.c_uint32, _c_u64p]
+                                  + [_c_f32p] * 5, None),
+        "em_optimize_batch": ([_c_f32p, _c_f32p, _c_f32p, ctypes.c_int,
+                               ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                               ctypes.c_int, ctypes.c_int], None),
     }
     for name, (argtypes, restype) in sig.items():
         fn = getattr(lib, name)
@@ -355,6 +382,59 @@ def stream_fixup_delta_native(
 
 
 # ---------------------------------------------------------------------------
+# the exact engine's count: host scan, row packing, row fix-up
+# ---------------------------------------------------------------------------
+
+
+def count_rows_exact_native(codes: np.ndarray, w: int, both_strands: bool,
+                            n_threads: int = 0):
+    """Threaded host count of a [B, L] code batch with the reference
+    scan's semantics (validity, post-N skip, greedy non-overlap,
+    canonical mirroring; see pengnative.cpp count_rows_exact): (counts
+    int32 [4**w], ltot)."""
+    lib = get_lib()
+    codes = np.ascontiguousarray(codes, dtype=np.uint8)
+    if codes.ndim != 2:
+        codes = codes.reshape(1, -1)
+    table = np.empty(4 ** w, dtype=np.int32)
+    ltot = lib.count_rows_exact(_ptr(codes, ctypes.c_uint8), codes.shape[0],
+                                codes.shape[1], w, 1 if both_strands else 0,
+                                n_threads, _ptr(table, ctypes.c_int32))
+    return table, int(ltot)
+
+
+def pack_codes_fused_native(codes: np.ndarray) -> np.ndarray:
+    """[B, ceil(L/4) + ceil(L/8)] uint8 wire rows: 2-bit codes then the
+    1-bit N mask (threaded; ops/counting.pack_codes is its numpy
+    form)."""
+    lib = get_lib()
+    codes = np.ascontiguousarray(codes, dtype=np.uint8)
+    b, length = codes.shape
+    out = np.empty((b, (length + 3) // 4 + (length + 7) // 8), dtype=np.uint8)
+    lib.pack_codes_native(_ptr(codes, ctypes.c_uint8), b, length,
+                          _ptr(out, ctypes.c_uint8))
+    return out
+
+
+def dedup_fixup_rows_native(rows: np.ndarray, length: int,
+                            both_strands: bool):
+    """Sparse count deltas (exact - naive dedup) of a batch of suspicious
+    rows (see pengnative.cpp dedup_fixup_rows): (ids int64, dvs int32),
+    canonical ids only."""
+    lib = get_lib()
+    rows = np.ascontiguousarray(rows, dtype=np.uint8)
+    n_rows, row_len = rows.shape
+    cap = max(1, n_rows * max(0, row_len - length + 1))
+    out_ids = np.empty(cap, dtype=np.int64)
+    out_dv = np.empty(cap, dtype=np.int32)
+    n = lib.dedup_fixup_rows(_ptr(rows, ctypes.c_uint8), n_rows, row_len,
+                             length, 1 if both_strands else 0,
+                             _ptr(out_ids, ctypes.c_int64),
+                             _ptr(out_dv, ctypes.c_int32))
+    return out_ids[:n], out_dv[:n]
+
+
+# ---------------------------------------------------------------------------
 # per-pattern statistics and seed selection
 # ---------------------------------------------------------------------------
 
@@ -406,6 +486,111 @@ def select_patterns_walk_native(order, z, counts, w: int, z_thr: float,
         1 if single_stranded else 0, 1 if filter_neighbors else 0,
         _ptr(out, ctypes.c_uint32))
     return out[:n_sel]
+
+
+def zscore_sort_indices(z: np.ndarray) -> np.ndarray:
+    """Descending std::sort of pattern ids by z-score with libstdc++ tie
+    placement (the reference binary's, src/base_pattern.cpp:454-458)."""
+    lib = get_lib()
+    z = _f32(z)
+    out = np.empty(z.shape[0], dtype=np.uint32)
+    lib.zscore_sort_indices(_ptr(z, ctypes.c_float), z.shape[0],
+                            _ptr(out, ctypes.c_uint32))
+    return out
+
+
+def base_log_pvalues_native(counts: np.ndarray,
+                            expected: np.ndarray) -> np.ndarray:
+    """Whole-table log p-values with the reference binary's libm
+    semantics (see pengnative.cpp base_log_pvalues_table)."""
+    lib = get_lib()
+    counts = np.ascontiguousarray(counts, dtype=np.int32)
+    expected = _f32(expected)
+    out = np.empty(counts.shape[0], dtype=np.float32)
+    lib.base_log_pvalues_table(_ptr(counts, ctypes.c_int32),
+                               _ptr(expected, ctypes.c_float),
+                               counts.shape[0], _ptr(out, ctypes.c_float))
+    return out
+
+
+def base_opt_score_native(score_type: int, observed: int, expected,
+                          pseudo: int, n_sequences: int) -> np.float32:
+    """Seed optimization score (enrichment or mutual information) with
+    the reference's float semantics (src/base_pattern.cpp:180-200)."""
+    return np.float32(get_lib().base_opt_score(
+        int(score_type), int(observed), float(expected), int(pseudo),
+        int(n_sequences)))
+
+
+def _aggregate_args(digit_batch, counts_table, expected_table, bgp_table):
+    digit_batch = np.ascontiguousarray(digit_batch, dtype=np.int32)
+    tables = (np.ascontiguousarray(counts_table, dtype=np.int32),
+              _f32(expected_table), _f32(bgp_table))
+    return digit_batch, tables
+
+
+def iupac_aggregate_exact(digit_batch: np.ndarray, both_strands: bool,
+                          counts_table: np.ndarray,
+                          expected_table: np.ndarray, bgp_table: np.ndarray):
+    """IUPAC aggregates of a digit batch [B, W] in the reference's fold
+    order (see pengnative.cpp): (counts int64, expected f32, bgp f32)."""
+    lib = get_lib()
+    digits, (counts, expected, bgp) = _aggregate_args(
+        digit_batch, counts_table, expected_table, bgp_table)
+    b, w = digits.shape
+    counts_out = np.empty(b, dtype=np.uint64)
+    expected_out = np.empty(b, dtype=np.float32)
+    bgp_out = np.empty(b, dtype=np.float32)
+    lib.iupac_aggregate_exact(
+        _ptr(digits, ctypes.c_int32), b, w, 1 if both_strands else 0,
+        _ptr(counts, ctypes.c_int32), _ptr(expected, ctypes.c_float),
+        _ptr(bgp, ctypes.c_float), _ptr(counts_out, ctypes.c_uint64),
+        _ptr(expected_out, ctypes.c_float), _ptr(bgp_out, ctypes.c_float))
+    return counts_out.astype(np.int64), expected_out, bgp_out
+
+
+def iupac_aggregate_score(digit_batch: np.ndarray, both_strands: bool,
+                          counts_table: np.ndarray,
+                          expected_table: np.ndarray, bgp_table: np.ndarray,
+                          score_type: int, pseudo_expected: int,
+                          n_sequences: int):
+    """Aggregation, statistics and optimization score of a candidate
+    batch in one pass with the reference's float semantics: (counts i64,
+    expected, bgp, zscore, logp, score), each [B] f32 but the counts."""
+    lib = get_lib()
+    digits, (counts, expected, bgp) = _aggregate_args(
+        digit_batch, counts_table, expected_table, bgp_table)
+    b, w = digits.shape
+    counts_out = np.empty(b, dtype=np.uint64)
+    outs = [np.empty(b, dtype=np.float32) for _ in range(5)]
+    lib.iupac_aggregate_score(
+        _ptr(digits, ctypes.c_int32), b, w, 1 if both_strands else 0,
+        _ptr(counts, ctypes.c_int32), _ptr(expected, ctypes.c_float),
+        _ptr(bgp, ctypes.c_float), int(score_type), int(pseudo_expected),
+        int(n_sequences),
+        _ptr(counts_out, ctypes.c_uint64),
+        *[_ptr(o, ctypes.c_float) for o in outs])
+    return (counts_out.astype(np.int64), *outs)
+
+
+def em_optimize_native(pwms: np.ndarray, counts_f32: np.ndarray,
+                       bg_f32: np.ndarray, saturation_factor: float,
+                       min_threshold: float, max_iterations: int,
+                       n_threads: int = 0) -> np.ndarray:
+    """EM in the reference's operation order, threaded over motifs:
+    the refined copy of ``pwms`` [M, W, 4] f32."""
+    lib = get_lib()
+    pwms = np.array(pwms, dtype=np.float32, order="C")
+    counts_f32, bg_f32 = _f32(counts_f32), _f32(bg_f32)
+    m, w, _ = pwms.shape
+    if n_threads <= 0:
+        n_threads = min(m, os.cpu_count() or 1)
+    lib.em_optimize_batch(_ptr(pwms, ctypes.c_float),
+                          _ptr(counts_f32, ctypes.c_float),
+                          _ptr(bg_f32, ctypes.c_float), m, w,
+                          float(saturation_factor), float(min_threshold),
+                          int(max_iterations), int(n_threads))
+    return pwms
 
 
 # ---------------------------------------------------------------------------

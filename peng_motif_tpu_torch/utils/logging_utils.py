@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import contextlib
 import logging
+import os
 import sys
 import time
 from typing import Dict, List, Tuple
@@ -67,3 +68,23 @@ class PhaseTimer:
             stream = sys.stderr
         for name, dt in self.totals().items():
             print(f"[TIMING] {name}: {dt * 1e3:.1f} ms", file=stream)
+
+
+@contextlib.contextmanager
+def torch_profile(trace_dir, device=None):
+    """Profile a block with ``torch.profiler`` (``--profile`` CLI flag):
+    host activity always, and the card's kernels and copies when
+    ``device`` is a CUDA device; writes the Chrome trace
+    ``<trace_dir>/trace.json``.  No-op when ``trace_dir`` is None."""
+    if trace_dir is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
+
+    activities = [ProfilerActivity.CPU]
+    if device is not None and device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))

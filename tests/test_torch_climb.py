@@ -220,16 +220,24 @@ def test_no_seeds():
     assert tcl.replay_walks(trace, [], W) == []
 
 
-def test_cli_reports_climb_overflow(monkeypatch, capsys, tmp_path):
+def test_cli_reports_climb_overflow(monkeypatch, caplog, tmp_path):
+    """A walk past MAX_STEPS is reported, naming the bound, and the run
+    falls back to the exact engine, as the reference engine does
+    (engine_tpu.py:1141-1142): exit 0 with the golden output."""
+    import logging
     import os
 
     from conftest import GOLDEN_DIR
+    from peng_motif_tpu_torch import engine
     from peng_motif_tpu_torch.cli import main
 
     monkeypatch.setattr(tcl, "MAX_STEPS", 1)
+    caplog.set_level(logging.INFO, logger="peng_motif_tpu_torch")
     out = tmp_path / "o.meme"
     rc = main([os.path.join(GOLDEN_DIR, "MafK_100seqs.fasta"), "-w", "8",
-               "--device", "cpu", "-o", str(out)])
-    assert rc == 1
-    assert "MAX_STEPS=1" in capsys.readouterr().err
-    assert not out.exists()
+               "--device", "cpu", "--engine", "tpu", "-o", str(out)])
+    assert rc == 0
+    assert "MAX_STEPS=1" in caplog.text
+    assert engine.LAST_ENGINE_USED == "exact"
+    with open(os.path.join(GOLDEN_DIR, "mafk100_w8.meme"), "rb") as g:
+        assert out.read_bytes() == g.read()

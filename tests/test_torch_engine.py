@@ -1,6 +1,7 @@
 """The port's CLI end to end on the CPU (``--device cpu``): the golden
-cases of the reference package's device engine, degenerate inputs
-against the reference CLI, and the port's own flag errors.  Every
+cases of the reference package's device engine (``--engine tpu``),
+degenerate inputs against the reference CLI, and the port's own flag
+errors.  The exact engine's cases are in tests/test_torch_exact_engine.py.  Every
 golden case against the reference engine's output is in
 tests/test_torch_engine_vs_jax.py.
 
@@ -56,7 +57,7 @@ def _assert_within_tol(got, want, stem, tol, rel=1e-6):
 def test_engine_cases_within_tolerance(stem, args, tmp_path):
     meme, js = str(tmp_path / "o.meme"), str(tmp_path / "o.json")
     argv = ([os.path.join(GOLDEN_DIR, args[0])] + args[1:]
-            + ["--device", "cpu", "-o", meme, "-j", js])
+            + ["--device", "cpu", "--engine", "tpu", "-o", meme, "-j", js])
     assert main(argv) == 0
     tol = 2e-5 if stem == "mafk_w8_rich" else 5e-6
     _assert_within_tol(_read(meme), _read(
@@ -127,9 +128,7 @@ def test_default_device_is_cuda(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--engine", "exact"], ["--devices", "2"], ["--profile", "trace"],
-    ["--save-checkpoint", "ck"], ["--load-checkpoint", "ck"],
-    ["--num-processes", "2"], ["--process-id", "1"],
+    ["--devices", "2"], ["--num-processes", "2"], ["--process-id", "1"],
     ["--coordinator", "localhost:1234"]], ids=lambda f: f[0] + f[1])
 def test_unported_flags_exit_with_error(flag, capsys):
     with pytest.raises(SystemExit) as exc:

@@ -1,5 +1,5 @@
-"""The port's CLI (``--device cpu``) against the reference package's
-device engine (``--engine tpu``, on the CPU) on every golden case of
+"""The port's device engine (``--device cpu --engine tpu``) against the
+reference package's device engine (``--engine tpu``, on the CPU) on every golden case of
 tests/test_e2e_parity.py, from the same run.
 
 Tolerance: the ENGINE_CASES contract of tests/test_engine_tpu.py —
@@ -43,7 +43,8 @@ def test_port_matches_reference_engine(stem, args, check_json, tmp_path,
                                        capsys):
     outs = {}
     for label, fn, extra in (("ref", reference_main, ["--engine", "tpu"]),
-                             ("port", main, ["--device", "cpu"])):
+                             ("port", main, ["--device", "cpu",
+                                             "--engine", "tpu"])):
         meme, js = tmp_path / f"{label}.meme", tmp_path / f"{label}.json"
         argv = ([os.path.join(GOLDEN_DIR, args[0])] + args[1:] + extra
                 + ["-o", str(meme), "-j", str(js)])

@@ -1,8 +1,9 @@
 """Card-only tests of the port: the CUDA histogram kernel against its
-plain PyTorch version, the stream count and the post-count programs
-(flat tables, stats, walks, adv-PWM, EM) on the card against the same
-programs on the CPU, and the CLI through the kernel.  Every test skips
-without a CUDA device.
+plain PyTorch version, the stream count, the exact engine's batch count
+and the post-count programs (flat tables, stats, walks, adv-PWM, EM) on
+the card against the same programs on the CPU, and the CLI through the
+kernel (device engine, and the exact engine with its count forced onto
+the card).  Every test skips without a CUDA device.
 
 This file imports neither jax nor the reference package, so that it runs
 on a machine without them:
@@ -26,6 +27,7 @@ import torch
 from peng_motif_tpu_torch import engine
 from peng_motif_tpu_torch.cli import main
 from peng_motif_tpu_torch.ops import climb as tcl
+from peng_motif_tpu_torch.ops import counting as tcnt
 from peng_motif_tpu_torch.ops import em as tem
 from peng_motif_tpu_torch.ops import flat_tables as tft
 from peng_motif_tpu_torch.ops import histogram as th
@@ -142,12 +144,64 @@ def test_cli_golden_through_kernel(stem, args, cuda, tmp_path):
     th.LAUNCHES = 0
     meme = tmp_path / "o.meme"
     assert main([os.path.join(GOLDEN_DIR, args[0])] + args[1:]
-                + ["--device", "cuda", "-o", str(meme)]) == 0
+                + ["--device", "cuda", "--engine", "tpu", "-o",
+                   str(meme)]) == 0
     assert engine.LAST_ENGINE_USED == "gpu"
     assert engine.LAST_CLIMB_ENGINE == engine.LAST_PWM_ENGINE == "device"
     assert th.LAUNCHES > 0
     with open(os.path.join(GOLDEN_DIR, f"{stem}.meme")) as g:
         _within_tol(meme.read_text(), g.read())
+
+
+@pytest.mark.parametrize("both", [True, False], ids=["both", "plus"])
+def test_batch_count_on_card_matches_cpu(both, cuda, monkeypatch):
+    """count_patterns and the CountJob device path at W 10: the card's
+    table and ltot equal the CPU's (plain histogram) and the host scan's,
+    with tandem repeats taking the row fix-up."""
+    rng = np.random.default_rng(9)
+    codes = rng.integers(1, 5, size=(300, 640)).astype(np.uint8)
+    codes[rng.random(codes.shape) < 0.01] = 0   # Ns
+    codes[4, :128] = np.tile(np.array([1, 3], dtype=np.uint8), 64)
+    host = tcnt.CountJob(codes, 10, both, "cpu").finish()
+    monkeypatch.setenv("PENG_COUNT_HOST_MAX_BASES", "0")
+    before = th.LAUNCHES
+    dev = tcnt.CountJob(codes, 10, both, cuda).finish()
+    assert th.LAUNCHES == before + 1
+    cpu = tcnt.CountJob(codes, 10, both, "cpu").finish()
+    for counts, ltot in (dev, cpu):
+        assert ltot == host[1]
+        np.testing.assert_array_equal(counts, host[0])
+    got, ltot = tcnt.count_patterns(torch.from_numpy(codes).to(cuda), 10,
+                                    both)
+    assert got.device.type == "cuda" and ltot == host[1]
+    np.testing.assert_array_equal(got.cpu().numpy(), host[0])
+
+
+@pytest.mark.parametrize("stem,args", [
+    ("mafk100_w8", ["MafK_100seqs.fasta", "-w", "8"]),
+    ("mafk_w8", ["MafK.fasta", "-w", "8"]),
+    ("synth_w8", ["synthetic_n.fasta", "-w", "8"]),
+    ("synth_w8_plus", ["synthetic_n.fasta", "-w", "8", "--strand", "PLUS"])])
+def test_exact_engine_device_count_on_card(stem, args, cuda, tmp_path,
+                                           monkeypatch):
+    """--engine exact with the count forced onto the card
+    (PENG_COUNT_HOST_MAX_BASES=0): the kernel launches and the output is
+    byte-identical to the host-count run and to the golden file."""
+    outs = {}
+    for path in ("host", "device"):
+        if path == "device":
+            monkeypatch.setenv("PENG_COUNT_HOST_MAX_BASES", "0")
+        th.LAUNCHES = 0
+        meme = tmp_path / f"{path}.meme"
+        assert main([os.path.join(GOLDEN_DIR, args[0])] + args[1:]
+                    + ["--device", "cuda", "--engine", "exact", "-o",
+                       str(meme)]) == 0
+        assert engine.LAST_ENGINE_USED == "exact"
+        outs[path] = (meme.read_bytes(), th.LAUNCHES)
+    assert outs["host"][1] == 0 and outs["device"][1] > 0
+    assert outs["device"][0] == outs["host"][0]
+    with open(os.path.join(GOLDEN_DIR, f"{stem}.meme"), "rb") as g:
+        assert outs["host"][0] == g.read()
 
 
 # -- post-count programs, card against CPU ----------------------------------

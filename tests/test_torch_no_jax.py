@@ -54,7 +54,7 @@ _check_clean()
 print(len(names))
 ''')
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 15
+    assert int(proc.stdout.split()[-1]) >= 26
 
 
 def test_cli_golden_without_jax(tmp_path):
