@@ -11,9 +11,18 @@ caught):
                device name;
   2. build   — the histogram kernel (nvcc, sm_90a) and the native host
                library (g++), from the sources in this checkout;
-  3. kernel  — the histogram kernel against its plain PyTorch version
-               (torch.bincount), bit-identical, at ~50M ids for six table
-               sizes and on four edge inputs, both timed with CUDA events;
+  3. kernel  — the histogram kernels against their plain PyTorch version
+               (torch.bincount), bit-identical, at 50M ids for eight table
+               sizes (every tier the dispatcher can take, at full width:
+               the shared tier at 384 ... 58,112 bins in one slice and at
+               4**8, 4**9 in slices, the L2 tier at 4**10 and in bin-range
+               passes at 4**12) and on the edge inputs of
+               peng_motif_tpu_torch.bench_histogram (unaligned slices,
+               ragged lengths, junk in masked ids, flags of 2 and 255,
+               counted ids outside the table, 2**24 inputs in one bin),
+               timed with CUDA events beside the bound from the bytes,
+               with no flag and with every flag set, and beside the
+               library calls (index_add_, bincount);
   4. golden  — the port's device engine (--device cuda --engine tpu) on
                the golden MafK inputs (MafK -w 8, -w 10; MafK_100seqs -w 8,
                -w 12)
@@ -157,30 +166,28 @@ def run_cli(argv, stdout=None):
     return wall, timing
 
 
-def time_pair(ids, inc, n_bins, reps=10):
-    """(kernel ms, plain ms, bit-identical) on one input, alternating
-    kernel and plain blocks after a warm-up."""
+def time_pair(ids, inc, n_bins, reps=10, library=False):
+    """(kernel ms, plain ms, bit-identical, max abs error, library ms) on
+    one input, kernel and plain (and, with ``library``, the two library
+    calls: the faster one is reported, else None) timed in turns after a
+    warm-up."""
     import torch
 
+    from peng_motif_tpu_torch.bench_histogram import (library_calls,
+                                                      time_in_turns)
     from peng_motif_tpu_torch.ops import histogram as H
 
-    fns = {"kernel": H.histogram, "plain": H.histogram_plain}
-    outs = {k: fn(ids, inc, n_bins) for k, fn in fns.items()}
+    fns = {"kernel": lambda: H.histogram(ids, inc, n_bins),
+           "plain": lambda: H.histogram_plain(ids, inc, n_bins)}
+    got, want = fns["kernel"](), fns["plain"]()
     torch.cuda.synchronize()
-    same = torch.equal(outs["kernel"], outs["plain"])
-    err = int((outs["kernel"].long() - outs["plain"].long()).abs().max())
-    total = {"kernel": 0.0, "plain": 0.0}
-    for order in (("kernel", "plain"), ("plain", "kernel")):
-        for k in order:
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(reps):
-                fns[k](ids, inc, n_bins)
-            stop.record()
-            torch.cuda.synchronize()
-            total[k] += start.elapsed_time(stop)
-    return total["kernel"] / (2 * reps), total["plain"] / (2 * reps), same, err
+    same = torch.equal(got, want)
+    err = int((got.long() - want.long()).abs().max())
+    if library:
+        fns.update(library_calls(ids, inc, n_bins))
+    ms = time_in_turns(fns, reps)
+    lib_ms = min(ms["index_add_"], ms["bincount"]) if library else None
+    return ms["kernel"], ms["plain"], same, err, lib_ms
 
 
 def write_large_corpus(path):
@@ -240,10 +247,10 @@ class Recorder:
             real_deliver(bgm, bg_words, bg_corr)
             self.bg = [n.copy() for n in bgm.n]
 
-        def histogram(ids, inc, n_bins):
+        def histogram(ids, inc, n_bins, out=None):
             if n_bins not in self.inputs:
                 self.inputs[n_bins] = (ids.clone(), inc.clone())
-            return hist(ids, inc, n_bins)
+            return hist(ids, inc, n_bins, out=out)
 
         engine._count_phase, engine._deliver_bg = count_phase, deliver
         stream_count.histogram = histogram
@@ -298,10 +305,10 @@ class ExactRecorder:
             self.counts, self.ltot = out
             return out
 
-        def histogram(ids, inc, n_bins):
+        def histogram(ids, inc, n_bins, out=None):
             if self.hist_input is None:
                 self.hist_input = (ids.clone(), inc.clone(), n_bins)
-            return real_hist(ids, inc, n_bins)
+            return real_hist(ids, inc, n_bins, out=out)
 
         job_cls.__init__, job_cls.finish = init, finish
         counting.histogram = histogram
@@ -486,6 +493,7 @@ def run_exact_phase(tmp, large_fasta):
     import numpy as np
 
     from peng_motif_tpu_torch import engine
+    from peng_motif_tpu_torch.bench_histogram import bound_ms
     from peng_motif_tpu_torch.ops import histogram as H
 
     rec = {"max_abs_err": 0}
@@ -559,11 +567,16 @@ def run_exact_phase(tmp, large_fasta):
         print("  w10 host vs device count: count table, ltot and MEME bytes "
               "identical", flush=True)
         ids, inc, n_bins = recs["device"].hist_input
-        k_ms, p_ms, same, err = time_pair(ids, inc, n_bins)
-        rec.update(ms=k_ms, plain_ms=p_ms, max_abs_err=err)
+        k_ms, p_ms, same, err, lib_ms = time_pair(ids, inc, n_bins,
+                                                  library=True)
+        b_ms = bound_ms(ids.numel(), n_bins)
+        rec.update(ms=k_ms, plain_ms=p_ms, max_abs_err=err,
+                   library_ms=lib_ms, bound_ms=b_ms)
         print(f"  batch-count input n_bins={n_bins} n={ids.numel()} "
-              f"counted={int(inc.sum())}: kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms, bit-identical {same}", flush=True)
+              f"counted={int(inc.sum())}: kernel {k_ms:.4f} ms "
+              f"({100 * b_ms / k_ms:.1f}% of the {b_ms:.4f} ms bound), "
+              f"plain {p_ms:.4f} ms, library {lib_ms:.4f} ms, "
+              f"bit-identical {same}", flush=True)
         assert same, "kernel != plain on the exact engine's input"
         del ids, inc, recs
         # the device engine against the exact engine.  Two of its sums
@@ -662,13 +675,16 @@ def main() -> int:
     import numpy as np
 
     from peng_motif_tpu_torch import engine
+    from peng_motif_tpu_torch.bench_histogram import (EDGE_NAMES, bound_ms,
+                                                      edge_tensors,
+                                                      time_in_turns)
     from peng_motif_tpu_torch.device import resolve_device
     from peng_motif_tpu_torch.io.fasta import load_sequence_set
     from peng_motif_tpu_torch.models.background import BackgroundModel
     from peng_motif_tpu_torch.native import get_lib
     from peng_motif_tpu_torch.ops import histogram as H
 
-    kernel_ms = plain_ms = None
+    kernel_ms = plain_ms = library_ms = bound = None
     max_err = 0
 
     with phase("device"):
@@ -695,46 +711,59 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}", flush=True)
 
+    tiers = {}
     with phase("kernel vs plain, synthetic ids"):
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
         n = 50_000_000
-        for n_bins in (384, 4 ** 6, 4 ** 8, 4 ** 9, 4 ** 10, 4 ** 12):
+        for n_bins in (384, 4 ** 6, 4 ** 7, H.SHARED_MAX_BINS, 4 ** 8,
+                       4 ** 9, 4 ** 10, 4 ** 12):
             ids = torch.randint(0, n_bins, (n,), generator=gen, device=dev,
                                 dtype=torch.int32)
             inc = torch.rand(n, generator=gen, device=dev) < 0.8
-            k_ms, p_ms, same, err = time_pair(ids, inc, n_bins)
+            p = H.plan(n_bins, n)
+            tiers[str(n_bins)] = (
+                f"{p.tier}, {p.slices} slice(s) of {p.shared_bytes} B"
+                if p.tier == "shared" else
+                f"{p.tier}, {len(p.ranges)} pass(es)")
+            before = H.LAUNCHES
+            k_ms, p_ms, same, err, lib_ms = time_pair(ids, inc, n_bins,
+                                                      library=True)
             max_err = max(max_err, err)
-            print(f"  n_bins={n_bins:>9} n={n} counted=80%: kernel "
-                  f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bit-identical "
-                  f"{same}", flush=True)
+            b_ms = bound_ms(n, n_bins)
+            print(f"  n_bins={n_bins:>9} n={n} counted=80% "
+                  f"[{tiers[str(n_bins)]}]: kernel {k_ms:.4f} ms "
+                  f"({100 * b_ms / k_ms:.1f}% of the {b_ms:.4f} ms bound), "
+                  f"plain {p_ms:.4f} ms, library {lib_ms:.4f} ms, "
+                  f"bit-identical {same}", flush=True)
             assert same, f"kernel != plain at n_bins={n_bins}"
+            assert H.LAUNCHES > before
+            # the split of load cost from atomic cost: no flag set (the
+            # pure load rate) and every flag set
+            for label, flags in (("zero", torch.zeros_like(inc)),
+                                 ("one", torch.ones_like(inc))):
+                ms = time_in_turns(
+                    {"kernel": lambda: H.histogram(ids, flags, n_bins)})
+                print(f"    flags all {label}: kernel {ms['kernel']:.4f} "
+                      f"ms ({100 * b_ms / ms['kernel']:.1f}% of bound)",
+                      flush=True)
             del ids, inc
-        for n_bins in (384, 4 ** 10):
-            edges = {
-                "empty": (torch.zeros(0, dtype=torch.int32, device=dev),
-                          torch.zeros(0, dtype=torch.bool, device=dev)),
-                "all masked": (
-                    torch.randint(0, n_bins, (1 << 20,), generator=gen,
-                                  device=dev, dtype=torch.int32),
-                    torch.zeros(1 << 20, dtype=torch.bool, device=dev)),
-                "one hot bin": (
-                    torch.full((1 << 20,), n_bins // 3, dtype=torch.int32,
-                               device=dev),
-                    torch.ones(1 << 20, dtype=torch.bool, device=dev)),
-                "last bin": (
-                    torch.full((1 << 20,), n_bins - 1, dtype=torch.int32,
-                               device=dev),
-                    torch.rand(1 << 20, generator=gen, device=dev) < 0.5),
-            }
-            for name, (ids, inc) in edges.items():
+        for n_bins in (384, 4 ** 8, 4 ** 10, 4 ** 12):
+            for name in EDGE_NAMES:
+                ids, inc = edge_tensors(name, n_bins, dev)
                 got = H.histogram(ids, inc, n_bins)
                 want = H.histogram_plain(ids, inc, n_bins)
                 torch.cuda.synchronize()
-                same = torch.equal(got, want)
-                print(f"  edge {name:>11} n_bins={n_bins}: bit-identical "
-                      f"{same}", flush=True)
-                assert same, f"kernel != plain on edge input {name}"
+                assert torch.equal(got, want), \
+                    f"kernel != plain on edge input {name} n_bins={n_bins}"
+            # out=: adds into a running table, equal to two calls summed
+            ids, inc = edge_tensors("sliced_3", n_bins, dev)
+            run = H.histogram(ids, inc, n_bins)
+            assert H.histogram(ids, inc, n_bins, out=run) is run
+            torch.cuda.synchronize()
+            assert torch.equal(run, 2 * H.histogram_plain(ids, inc, n_bins))
+            print(f"  n_bins={n_bins}: {len(EDGE_NAMES)} edge inputs and "
+                  f"out= bit-identical", flush=True)
 
     chain_inputs = {}
     with phase("golden end to end (--device cuda)"):
@@ -794,11 +823,13 @@ def main() -> int:
             with rec.active(), crec.active():
                 if launches is None:
                     H.LAUNCHES = 0  # the main-path run starts here
+                    H.TIER_LAUNCHES.update(shared=0, l2=0)
                 wall, timing = run_cli([fasta, "-w", "10", "--device",
                                         "cuda", "--engine", "tpu", "--timing",
                                         "-o", out])
                 if launches is None:
                     launches = H.LAUNCHES
+                    tier_launches = dict(H.TIER_LAUNCHES)
                     chain_inputs["large_w10"] = crec.inputs()
             assert engine.LAST_CLIMB_ENGINE == "device"
             assert engine.LAST_PWM_ENGINE == "device"
@@ -820,8 +851,11 @@ def main() -> int:
             print(f"  w10 {label:>6} mean of 2: end-to-end {e2e:.3f} s, "
                   f"count phase {cnt:.3f} s = {n_bases / cnt / 1e6:.2f} "
                   f"Mbases/s", flush=True)
-        print(f"  w10 main-path histogram launches: {launches}", flush=True)
-        assert launches > 0, "the main path launched no histogram kernel"
+        print(f"  w10 main-path histogram launches: {launches} "
+              f"{tier_launches}", flush=True)
+        assert launches == sum(tier_launches.values())
+        assert all(v > 0 for v in tier_launches.values()), \
+            "a kernel of the main path was launched no time"
         assert same_record(recs["kernel"], recs["plain"]), \
             "w10: kernel and plain count tables differ"
         assert memes["kernel"] == memes["plain"], "w10: MEME bytes differ"
@@ -831,14 +865,19 @@ def main() -> int:
         # the kernel on the exact inputs the main path handed it
         main_inputs = recs["kernel"].inputs
         for n_bins, (ids, inc) in sorted(main_inputs.items()):
-            k_ms, p_ms, same, err = time_pair(ids, inc, n_bins)
+            k_ms, p_ms, same, err, lib_ms = time_pair(ids, inc, n_bins,
+                                                      library=True)
             max_err = max(max_err, err)
+            b_ms = bound_ms(ids.numel(), n_bins)
             print(f"  main-path input n_bins={n_bins} n={ids.numel()} "
-                  f"counted={int(inc.sum())}: kernel {k_ms:.4f} ms, plain "
-                  f"{p_ms:.4f} ms, bit-identical {same}", flush=True)
+                  f"counted={int(inc.sum())} (input L2-resident): kernel "
+                  f"{k_ms:.4f} ms ({100 * b_ms / k_ms:.1f}% of the "
+                  f"{b_ms:.4f} ms bound), plain {p_ms:.4f} ms, library "
+                  f"{lib_ms:.4f} ms, bit-identical {same}", flush=True)
             assert same, f"kernel != plain on the main-path input {n_bins}"
             if n_bins == 4 ** 10:
-                kernel_ms, plain_ms = k_ms, p_ms
+                kernel_ms, plain_ms, library_ms, bound = (k_ms, p_ms, lib_ms,
+                                                          b_ms)
         assert kernel_ms is not None, "no 4**10 table in the main path"
 
         sset = load_sequence_set(fasta)
@@ -851,13 +890,15 @@ def main() -> int:
                 sequence_set=sset,
                 bg_model=BackgroundModel(sset.sequences, order=2,
                                          interpolate=True, defer=True))
+            before = H.LAUNCHES
             with rec.active():
                 engine._count_phase(peng, 12, True, dev)
             recs.setdefault(label, rec)
             print(f"  w12 {label:>7} histogram: count phase "
                   f"{rec.count_s:.3f} s = "
                   f"{n_bases / rec.count_s / 1e6:.2f} Mbases/s, ltot "
-                  f"{rec.ltot}", flush=True)
+                  f"{rec.ltot}, histogram launches {H.LAUNCHES - before}",
+                  flush=True)
         assert same_record(recs["kernel"], recs["plain"]), \
             "w12: kernel and plain count tables differ"
         print("  w12 kernel vs plain: count table, ltot and background "
@@ -885,15 +926,24 @@ def main() -> int:
     max_err = max(max_err, exact["max_abs_err"])
     big.cleanup()
 
-    # launches / ms / plain_ms: the device engine's main path (51.2 Mbases
-    # -w 10, the 4**10 table); exact_*: the exact engine's batch device
-    # count on the same corpus
+    # launches / ms / plain_ms / library_ms / bound_ms: the device engine's
+    # main path (51.2 Mbases -w 10, the first slab's 4**10 table; bound
+    # from its bytes: 5 B per input and 4 B per bin at 3.35 TB/s);
+    # exact_*: the exact engine's batch device count on the same corpus;
+    # tier_launches: the main path's launches per kernel (the background
+    # table goes to the shared tier, the 4**10 table to the L2 tier);
+    # tiers: what the dispatcher took per table size at 50M ids
     print(json.dumps({"kernels": [{
         "name": "histogram", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,
+        "tier_launches": tier_launches,
         "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": "bytes", "library_ms": library_ms,
+        "tiers": tiers,
         "exact_launches": exact["launches"], "exact_ms": exact["ms"],
-        "exact_plain_ms": exact["plain_ms"]}]}), flush=True)
+        "exact_plain_ms": exact["plain_ms"],
+        "exact_bound_ms": exact["bound_ms"],
+        "exact_library_ms": exact["library_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

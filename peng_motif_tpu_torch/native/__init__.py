@@ -1,10 +1,11 @@
 """Native C++ host helpers, bound via ctypes.
 
-The library is the reference package's ``peng_motif_tpu/native/
-pengnative.cpp``, compiled by path (the source is not copied) into
-``peng_motif_tpu_torch/_build/libpengnative.so`` at first use, and again
-whenever the source is newer than the library.  This module binds only
-the functions the port calls.
+The library is built from the port's own source, ``peng_motif_tpu_torch/
+csrc/pengnative.cpp`` (a byte-for-byte copy of the reference package's
+``native/pengnative.cpp``, held equal by tests/test_torch_no_jax.py while
+both exist), into ``peng_motif_tpu_torch/_build/libpengnative.so`` at
+first use, and again whenever the source is newer than the library.  This
+module binds only the functions the port calls.
 
 The host side's parity with the reference binary rests on this library
 (libstdc++ tie-exact sorts, reference-order float folds), so there is no
@@ -23,8 +24,7 @@ import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
-_SRC = os.path.join(os.path.dirname(_PKG), "peng_motif_tpu", "native",
-                    "pengnative.cpp")
+_SRC = os.path.join(_PKG, "csrc", "pengnative.cpp")
 _SO = os.path.join(BUILD_DIR, "libpengnative.so")
 
 _lock = threading.Lock()

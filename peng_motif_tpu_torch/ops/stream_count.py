@@ -242,7 +242,7 @@ def bg_offset(k: int) -> int:
 
 
 def stream_bg_counts(codes: torch.Tensor, ctx: int, core: int,
-                     bg_order: int) -> torch.Tensor:
+                     bg_order: int, out=None) -> torch.Tensor:
     """Fused background (k+1)-mer histogram over the chunk batch.
 
     Device rule (see models/background.bg_device_corrections for the
@@ -254,7 +254,8 @@ def stream_bg_counts(codes: torch.Tensor, ctx: int, core: int,
     chunk-0 left padding read as Ns.  Requires ctx >= 8.
 
     Returns one int32 vector of length :func:`bg_nbins` holding the
-    order-k counts at offset :func:`bg_offset`.
+    order-k counts at offset :func:`bg_offset`; with ``out`` given the
+    counts are added into it.
     """
     assert ctx >= 8, "bg lookback needs 8 context positions"
     b, row = codes.shape
@@ -278,15 +279,17 @@ def stream_bg_counts(codes: torch.Tensor, ctx: int, core: int,
         ids_k.append(vk + bg_offset(k))
     flat_ids = torch.stack(ids_k).reshape(-1)
     flat_inc = counted.expand(bg_order + 1, b, row).reshape(-1)
-    return histogram(flat_ids, flat_inc, bg_nbins(bg_order))
+    return histogram(flat_ids, flat_inc, bg_nbins(bg_order), out=out)
 
 
 def stream_local_counts(codes: torch.Tensor, ctx: int, length: int,
-                        both_strands: bool, bg_order: int = -1):
+                        both_strands: bool, bg_order: int = -1,
+                        counts_out=None, bg_out=None):
     """Per-chunk-batch raw counting: (counts [4**W] int32 un-mirrored,
     ltot int64, suspicious [rows] bool, bg) — ``bg`` is the fused
     background histogram (:func:`stream_bg_counts`) when
-    ``bg_order >= 0``, else None."""
+    ``bg_order >= 0``, else None.  ``counts_out`` / ``bg_out``: running
+    tables that the two histograms add into (and that are returned)."""
     fwd, rc, valid = encoding.window_ids(codes, length)
     skip, ambiguous = _skip_and_ambiguity(codes, valid, length)
     processed = valid & ~skip
@@ -296,12 +299,13 @@ def stream_local_counts(codes: torch.Tensor, ctx: int, length: int,
     counted, susp = naive_dedup(cids, length)
     counted &= core_win[None, :]
     # ids of uncounted windows are never read by the histogram
-    counts = histogram(cids.reshape(-1), counted.reshape(-1), 4 ** length)
+    counts = histogram(cids.reshape(-1), counted.reshape(-1), 4 ** length,
+                       out=counts_out)
     ltot = (processed & core_win[None, :]).sum(dtype=torch.int64)
     bg = None
     if bg_order >= 0:
         core = codes.shape[1] - length + 1 - ctx
-        bg = stream_bg_counts(codes, ctx, core, bg_order)
+        bg = stream_bg_counts(codes, ctx, core, bg_order, out=bg_out)
     return counts, ltot, susp | ambiguous, bg
 
 
@@ -365,17 +369,13 @@ def _accumulated_local_counts(buf2d: torch.Tensor, row: int, ctx: int,
     counts = ltot = bg = None
     susp = torch.zeros(m_pad, dtype=torch.bool, device=buf2d.device)
     for k0 in range(0, m_pad, slab):
-        c, lt, sp, b = stream_local_counts(
+        # from the second slab on, both histograms add into the running
+        # tables: no table is allocated, zeroed or summed per slab
+        counts, lt, sp, bg = stream_local_counts(
             codes_fn(buf2d[k0 : k0 + slab], k0), ctx, length, both_strands,
-            bg_order)
+            bg_order, counts_out=counts, bg_out=bg)
         susp[k0 : k0 + slab] = sp
-        if counts is None:
-            counts, ltot, bg = c, lt, b
-        else:
-            counts += c
-            ltot += lt
-            if b is not None:
-                bg += b
+        ltot = lt if ltot is None else ltot + lt
     return counts, ltot, susp, bg
 
 

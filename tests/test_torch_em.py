@@ -15,7 +15,10 @@ the port reproduces, and its expected (bgp * ltot) two (ROADMAP
 Queue C);
 adv-PWMs bit-identical (integer sums, then one f64 division); EM PWMs
 within 5e-6 with identical iteration counts (the responsibility sums are
-f32 tree sums whose order differs between the packages).
+f32 tree sums whose order differs between the packages) — also on a
+4**10 table of 5.1e7 counts, the size at which both packages' device EM
+sits 1e-4 and more from the native EM's ascending f32 fold
+(test_em_at_corpus_scale_matches_reference prints that distance).
 """
 
 import jax.numpy as jnp
@@ -27,6 +30,7 @@ from peng_motif_tpu import engine_tpu as jeng
 from peng_motif_tpu.ops import em as jem
 from peng_motif_tpu.ops import flat_tables as jft
 from peng_motif_tpu_torch import engine as teng
+from peng_motif_tpu_torch.native import em_optimize_native
 from peng_motif_tpu_torch.ops import em as tem
 
 
@@ -187,3 +191,57 @@ def test_em_no_motifs():
                                    torch.from_numpy(counts),
                                    torch.from_numpy(bg), 1e4, 0.08, 10, 4)
     assert pwm.shape == (0, 4, 4) and it.shape == (0,)
+
+
+def _em_inputs_at_scale(W=10, planted=8, total=51_000_000, seed=23):
+    """A 4**W table at the 51.2-Mbase corpus's scale: ``total`` counts
+    drawn multinomially, a planted 8-mer (at offset 1 of the W positions)
+    raised tenfold with its one-mismatch neighbours raised by half; the
+    uniform strand-aggregated background; four start PWMs as in
+    :func:`_em_inputs`."""
+    rng = np.random.default_rng(seed)
+    n = 4 ** W
+    ids = np.arange(n)
+    motif = rng.integers(0, 4, size=W)
+    mism = np.zeros(n, dtype=np.int64)
+    for p in range(1, 1 + planted):
+        mism += ((ids >> (2 * p)) & 3) != motif[p]
+    weight = np.where(mism == 0, 10.0, np.where(mism == 1, 1.5, 1.0))
+    counts = rng.multinomial(total, weight / weight.sum()).astype(np.float32)
+    bg = np.full(n, 2.0 / n, np.float32)
+    pwms = np.full((4, W, 4), 0.05, np.float32)
+    pwms[0, np.arange(W), motif] = 0.85
+    pwms[1] = 0.25
+    pwms[1, np.arange(W), motif] = 0.4
+    pwms[2] = rng.dirichlet(np.ones(4), size=W)
+    pwms[3, np.arange(W), (motif + 2) % 4] = 0.85
+    pwms = pwms / pwms.sum(axis=-1, keepdims=True)
+    return pwms.astype(np.float32), counts, bg
+
+
+def test_em_at_corpus_scale_matches_reference(capsys):
+    """At ltot ~ 5.1e7 on a 4**10 table the port's EM still agrees with
+    the reference package's device EM (same iteration counts, cells
+    within 5e-6): what separates the device engine from the exact engine
+    at this scale is the f32 summation order that both device EMs share
+    against the native EM's ascending fold, not a fault of the port.  The
+    native EM's distance on the same table is printed, not asserted."""
+    pwms, counts, bg = _em_inputs_at_scale()
+    W = pwms.shape[1]
+    assert 5.0e7 < counts.sum() < 5.2e7
+    want_pwm, want_it = (np.asarray(x) for x in jem.em_optimize_flat(
+        jnp.asarray(pwms), jnp.asarray(counts), jnp.asarray(bg), 1e4, 0.08,
+        10, W))
+    got_pwm, got_it = tem.em_optimize_flat(
+        torch.from_numpy(pwms), torch.from_numpy(counts),
+        torch.from_numpy(bg), 1e4, 0.08, 10, W)
+    got_pwm = got_pwm.numpy()
+    np.testing.assert_array_equal(got_it.numpy(), want_it)
+    np.testing.assert_allclose(got_pwm, want_pwm, rtol=0, atol=5e-6)
+    native = em_optimize_native(pwms, counts, bg, 1e4, 0.08, 10, n_threads=2)
+    with capsys.disabled():
+        print(f"\nEM at 4**{W}, {int(counts.sum())} counts, iterations "
+              f"{want_it.tolist()}: port vs reference device EM max cell "
+              f"difference {np.abs(got_pwm - want_pwm).max():.3g}; native "
+              f"EM vs reference device EM {np.abs(native - want_pwm).max():.3g}"
+              f"; native EM vs port {np.abs(native - got_pwm).max():.3g}")

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from peng_motif_tpu_torch import engine
+from peng_motif_tpu_torch.bench_histogram import EDGE_NAMES, edge_tensors
 from peng_motif_tpu_torch.cli import main
 from peng_motif_tpu_torch.ops import climb as tcl
 from peng_motif_tpu_torch.ops import counting as tcnt
@@ -53,16 +54,23 @@ def _inputs(n, n_bins, seed, frac=0.8):
             rng.random(n) < frac)
 
 
-@pytest.mark.parametrize("n_bins", [384, 4 ** 6, 4 ** 7, 4 ** 8, 4 ** 10,
-                                    4 ** 12])
+@pytest.mark.parametrize("n_bins", [384, 4 ** 6, 4 ** 7, 58_112, 4 ** 8,
+                                    4 ** 9, 4 ** 10, 4 ** 12])
 def test_kernel_matches_plain(n_bins, cuda):
+    """Every tier of the dispatcher at full width: one slice of shared
+    memory (to 58,112 bins: 232,448 B), slices (4**8, 4**9), L2 (4**10)
+    and L2 in bin-range passes (4**12): one launch per pass."""
     ids, inc = _inputs(2_000_000, n_bins, seed=7)
     ids_d = torch.from_numpy(ids).to(cuda)
     inc_d = torch.from_numpy(inc).to(cuda)
-    before = th.LAUNCHES
+    plan = th.plan(n_bins, ids.size)
+    before, tier_before = th.LAUNCHES, th.TIER_LAUNCHES[plan.tier]
     got = th.histogram(ids_d, inc_d, n_bins)
     torch.cuda.synchronize()
-    assert th.LAUNCHES == before + 1
+    passes = len(plan.ranges)
+    assert passes == (3 if n_bins == 4 ** 12 else 1)
+    assert th.LAUNCHES == before + passes
+    assert th.TIER_LAUNCHES[plan.tier] == tier_before + passes
     assert torch.equal(got, th.histogram_plain(ids_d, inc_d, n_bins))
     assert torch.equal(got.cpu(), th.histogram(torch.from_numpy(ids),
                                                torch.from_numpy(inc), n_bins))
@@ -87,6 +95,33 @@ def test_kernel_edge_inputs(edge, inc_dtype, cuda):
         got = th.histogram(ids_d, inc_d, n_bins)
         torch.cuda.synchronize()
         assert torch.equal(got, th.histogram_plain(ids_d, inc_d, n_bins))
+
+
+@pytest.mark.parametrize("n_bins", [384, 4 ** 8, 4 ** 10, 4 ** 12])
+@pytest.mark.parametrize("edge", EDGE_NAMES)
+def test_kernel_shared_edge_inputs(edge, n_bins, cuda):
+    """The edge inputs of bench_histogram.edge_input (unaligned slices,
+    ragged lengths, junk in masked ids, flags of 2 and 255, counted ids
+    outside the table, 2**24 inputs in one bin) through each tier."""
+    ids, inc = edge_tensors(edge, n_bins, cuda)
+    got = th.histogram(ids, inc, n_bins)
+    torch.cuda.synchronize()
+    assert torch.equal(got, th.histogram_plain(ids, inc, n_bins))
+    assert torch.equal(got.cpu(), th.histogram(ids.cpu(), inc.cpu(), n_bins))
+
+
+@pytest.mark.parametrize("n_bins", [384, 4 ** 8, 4 ** 10, 4 ** 12])
+def test_kernel_out_accumulates(n_bins, cuda):
+    ids, inc = _inputs(1_500_001, n_bins, seed=9)
+    ids_d = torch.from_numpy(ids).to(cuda)[1:]
+    inc_d = torch.from_numpy(inc).to(cuda)[1:]
+    run = torch.arange(n_bins, dtype=torch.int32, device=cuda)
+    want = run + th.histogram_plain(ids_d, inc_d, n_bins)
+    assert th.histogram(ids_d, inc_d, n_bins, out=run) is run
+    torch.cuda.synchronize()
+    assert torch.equal(run, want)
+    with pytest.raises(ValueError):
+        th.histogram(ids_d, inc_d, n_bins, out=run.cpu())
 
 
 def test_kernel_rejects_mixed_devices(cuda):

@@ -5,6 +5,7 @@ output (within the ENGINE_CASES tolerance of tests/test_engine_tpu.py).  Runs in
 count."""
 
 import os
+import shutil
 import subprocess
 import sys
 
@@ -70,3 +71,65 @@ sys.exit(rc)
     for got, stem in ((meme, "mafk100_w8.meme"), (js, "mafk100_w8.json")):
         _assert_within_tol(_read(got), _read(os.path.join(GOLDEN_DIR, stem)),
                            stem, 5e-6)
+
+
+def test_native_source_is_the_ports_own():
+    """The port builds its native library from a source inside its own
+    package, a byte-for-byte copy of the reference package's (one source
+    of truth for byte parity while both exist)."""
+    from peng_motif_tpu_torch import native
+
+    pkg = os.path.join(REPO, "peng_motif_tpu_torch")
+    assert os.path.commonpath([native._SRC, pkg]) == pkg
+    assert native._SRC == os.path.join(pkg, "csrc", "pengnative.cpp")
+    ref = os.path.join(REPO, "peng_motif_tpu", "native", "pengnative.cpp")
+    with open(native._SRC, "rb") as f, open(ref, "rb") as g:
+        assert f.read() == g.read()
+
+
+def test_no_module_names_the_reference_package_by_path():
+    """No module of the port reaches into the reference package's
+    directory (an import is refused above; a path would slip through)."""
+    pkg = os.path.join(REPO, "peng_motif_tpu_torch")
+    hits = []
+    for root, _dirs, files in os.walk(pkg):
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            with open(os.path.join(root, name)) as f:
+                for i, line in enumerate(f, 1):
+                    if '"peng_motif_tpu"' in line or "'peng_motif_tpu'" in line:
+                        hits.append(f"{name}:{i}")
+    assert not hits, hits
+
+
+def test_cli_golden_with_the_reference_package_absent(tmp_path):
+    """A copy of the port alone, with no ``peng_motif_tpu/`` directory
+    beside it, builds its native library and reproduces the golden
+    output on the CPU."""
+    shutil.copytree(
+        os.path.join(REPO, "peng_motif_tpu_torch"),
+        tmp_path / "peng_motif_tpu_torch",
+        ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    fasta = tmp_path / "MafK_100seqs.fasta"
+    shutil.copy(os.path.join(GOLDEN_DIR, "MafK_100seqs.fasta"), fasta)
+    assert not (tmp_path / "peng_motif_tpu").exists()
+    meme, js = str(tmp_path / "o.meme"), str(tmp_path / "o.json")
+    env = dict(os.environ, PYTHONPATH=str(tmp_path))
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCK + r'''
+import peng_motif_tpu_torch
+from peng_motif_tpu_torch.cli import main
+assert peng_motif_tpu_torch.__file__.startswith(sys.argv[1]), \
+    peng_motif_tpu_torch.__file__
+rc = main(sys.argv[2:])
+_check_clean()
+sys.exit(rc)
+''', str(tmp_path), str(fasta), "-w", "8", "--device", "cpu", "--engine",
+         "exact", "-o", meme, "-j", js],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    assert (tmp_path / "peng_motif_tpu_torch" / "_build"
+            / "libpengnative.so").exists()
+    for got, stem in ((meme, "mafk100_w8.meme"), (js, "mafk100_w8.json")):
+        assert _read(got) == _read(os.path.join(GOLDEN_DIR, stem)), stem
