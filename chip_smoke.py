@@ -63,7 +63,37 @@ caught):
                MafK_100seqs and 51.2 Mbases the walls and the comparison
                are printed, not asserted); a checkpoint saved by the device engine and
                loaded by both engines; one --profile run whose Chrome
-               trace holds the histogram kernel.
+               trace holds the histogram kernel;
+  8. mesh    — parallel/sharded.py on the card: stream_count_sharded on
+               the 51.2-Mbase corpus at -w 10 over four shards that all
+               live on the one card, against the mesh of one that is the
+               single-device count (table, slice, ltot, suspicion and
+               background bit-identical, with the kernel and with the
+               plain histogram swapped in; the kernel's launches per
+               mesh printed, and the kernel timed on one shard's inputs);
+               count_patterns_sharded, count_device_full_sharded and
+               count_bg_kmers_sharded on MafK at -w 8 against the
+               single-device count and the native scans, the kernel
+               timed on one shard's inputs of each; the CLI with
+               --devices 1 (51.2 Mbases -w 10 on the device engine, MafK
+               -w 8 on the exact engine with the batch count on the
+               card): output identical to the run without --devices;
+               --devices with one card more than the machine has must
+               exit with an error;
+  9. procs   — two processes that share the card
+               (python -m peng_motif_tpu_torch ... --num-processes 2, gloo
+               expected) on MafK -w 10 and the 51.2-Mbase corpus:
+               process 0's MEME equal to the single-process run's, and
+               every rank's own report of the chunk rows it counted and
+               the kernels it launched for them read from its stderr
+               (each rank must have launched on the card; the two blocks
+               tile the chunk axis); the kernel held against the plain
+               version and timed on one rank's block of the 51.2-Mbase
+               corpus, rebuilt in this process; then
+               NCCL at world size 1, in this process (init_multihost +
+               multihost_stream_counts + multihost_bg_counts on the
+               51.2-Mbase corpus): LAST_BACKEND == "nccl", table, ltot
+               and background counts equal to the single-device run's.
 
 The last two lines are the kernels' JSON record and the run's result,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -664,6 +694,464 @@ def run_exact_phase(tmp, large_fasta):
     return rec
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def stream_histogram(fn):
+    """``fn(real, ids, inc, n_bins, out)`` in place of the histogram the
+    stream count calls (ops/stream_count.histogram)."""
+    from peng_motif_tpu_torch.ops import stream_count
+
+    real = stream_count.histogram
+    stream_count.histogram = lambda ids, inc, n_bins, out=None: fn(
+        real, ids, inc, n_bins, out)
+    try:
+        yield
+    finally:
+        stream_count.histogram = real
+
+
+def run_mesh_phase(tmp, large_fasta, dev, n_bases):
+    """Phase 8 (see the module docstring).  Returns the record of the
+    sharded call sites for the kernels line."""
+    import numpy as np
+    import torch
+
+    from peng_motif_tpu_torch import engine
+    from peng_motif_tpu_torch.bench_histogram import bound_ms
+    from peng_motif_tpu_torch.io.fasta import load_sequence_set
+    from peng_motif_tpu_torch.models.background import count_kmers
+    from peng_motif_tpu_torch.ops import counting
+    from peng_motif_tpu_torch.ops import histogram as H
+    from peng_motif_tpu_torch.parallel import sharded
+    from peng_motif_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    rec = {"max_abs_err": 0}
+    W, both, bg_order = 10, True, 2
+
+    def zero():
+        H.LAUNCHES = 0
+        H.TIER_LAUNCHES.update(shared=0, l2=0)
+
+    with phase("mesh on the card: stream_count_sharded, 51.2 Mbases -w 10"):
+        sset = load_sequence_set(large_fasta)
+        flat, n_undef = sset._flat_codes, sset.n_undefined
+        # the mesh of one is the single-device count of the main path
+        meshes = {"mesh1": (dev,), "mesh4": (dev,) * 4}
+
+        def count(mesh):
+            return sharded.stream_count_sharded(
+                sset.sequences, W, both, mesh, flat_codes=flat,
+                bg_order=bg_order, n_undefined=n_undef)
+
+        outs, walls, shard_inputs = {}, {}, {}
+        for version in ("kernel", "plain", "plain", "kernel"):
+            for label, mesh in meshes.items():
+                first = (version, label) not in outs
+                seen = {}
+
+                def hist(real, ids, inc, n_bins, out, seen=seen):
+                    if first and version == "kernel" and n_bins not in seen:
+                        seen[n_bins] = (ids.clone(), inc.clone())
+                    fn = real if version == "kernel" else H.histogram_plain
+                    return fn(ids, inc, n_bins, out=out)
+
+                zero()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with stream_histogram(hist):
+                    _stream, lay, out = count(mesh)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                walls.setdefault((version, label), []).append(wall)
+                if not first:
+                    continue
+                outs[version, label] = (lay, [t.cpu() for t in out])
+                if version == "kernel":
+                    rec[f"{label}_launches"] = H.LAUNCHES
+                    rec[f"{label}_tier_launches"] = dict(H.TIER_LAUNCHES)
+                    shard_inputs[label] = seen
+                    print(f"  {label}: m_pad {lay.m_pad}, histogram launches "
+                          f"{H.LAUNCHES} {dict(H.TIER_LAUNCHES)}", flush=True)
+                else:
+                    assert H.LAUNCHES == 0, "the plain run launched a kernel"
+        for (version, label), ws in walls.items():
+            mean = sum(ws) / len(ws)
+            print(f"  {label:>6} {version:>6} histogram: count wall {ws} s, "
+                  f"mean {mean:.4f} s = {n_bases / mean / 1e6:.2f} Mbases/s",
+                  flush=True)
+        # every shard launches both kernels: the background table goes to
+        # the shared tier, the 4**10 table to the L2 tier
+        assert rec["mesh4_tier_launches"] == {"shared": 4, "l2": 4}, rec
+        # seven slabs of 16,384 chunks, both tables per slab
+        assert rec["mesh1_tier_launches"] == {"shared": 7, "l2": 7}, rec
+        lay1, want = outs["kernel", "mesh1"]
+        assert lay1.m_pad == 7 * 16384, lay1.m_pad
+        assert int(want[2]) > 0
+        for key, (lay, got) in outs.items():
+            assert lay.m_pad >= lay1.m_pad and lay.m == lay1.m
+            for name, a, b in zip(("counts", "vals", "ltot", "susp", "bg"),
+                                  got, want):
+                if name == "susp":
+                    assert not a[lay1.m_pad:].any(), key
+                    a = a[: lay1.m_pad]
+                assert torch.equal(a, b), f"{key}: {name} differs"
+        print("  mesh of 1 and mesh of 4, kernel and plain: count "
+              "table, canonical slice, ltot, suspicion and background counts "
+              "bit-identical", flush=True)
+        del outs
+
+        # the kernel on the inputs one shard of the mesh of 4 handed it
+        for n_bins, (ids, inc) in sorted(shard_inputs["mesh4"].items()):
+            k_ms, p_ms, same, err, lib_ms = time_pair(ids, inc, n_bins,
+                                                      library=True)
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            b_ms = bound_ms(ids.numel(), n_bins)
+            print(f"  mesh4 shard 0 input n_bins={n_bins} n={ids.numel()} "
+                  f"counted={int(inc.sum())}: kernel {k_ms:.4f} ms "
+                  f"({100 * b_ms / k_ms:.1f}% of the {b_ms:.4f} ms bound), "
+                  f"plain {p_ms:.4f} ms, library {lib_ms:.4f} ms, "
+                  f"bit-identical {same}", flush=True)
+            assert same, f"kernel != plain on the shard's input {n_bins}"
+            tag = "shard_table" if n_bins == 4 ** W else "shard_bg"
+            rec[tag] = dict(n=ids.numel(), n_bins=n_bins, ms=k_ms,
+                            plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms)
+        assert {"shard_table", "shard_bg"} <= set(rec)
+        del shard_inputs, sset, flat
+
+    with phase("mesh on the card: batch and background counts, MafK -w 8"):
+        ss = load_sequence_set(os.path.join(GOLDEN, "MafK.fasta"))
+        codes = ss.padded()
+        mesh = (dev,) * 4
+        host = counting.CountJob(codes, 8, both, "cpu").finish()
+        seen = []
+        real_hist = counting.histogram
+
+        def rec_hist(ids, inc, n_bins, out=None):
+            seen.append((ids.clone(), inc.clone(), n_bins))
+            return real_hist(ids, inc, n_bins, out=out)
+
+        counting.histogram = rec_hist
+        try:
+            # the whole batch on the card, then four shards of it
+            zero()
+            single, single_ltot = counting.count_patterns(
+                torch.from_numpy(codes).to(dev), 8, both)
+            rec["count_patterns_launches"] = H.LAUNCHES
+            zero()
+            got, got_ltot = sharded.count_patterns_sharded(codes, 8, both,
+                                                           mesh)
+        finally:
+            counting.histogram = real_hist
+        rec["batch_launches"] = H.LAUNCHES
+        assert rec["count_patterns_launches"] == 1 and len(seen) == 5
+        assert H.LAUNCHES == 4, "a shard of the batch count launched nothing"
+        assert np.array_equal(got, host[0]) and got_ltot == host[1]
+        assert np.array_equal(got, single.cpu().numpy())
+        assert got_ltot == single_ltot
+        full = sharded.count_device_full_sharded(codes, 8, both, mesh)
+        assert full[0].device == dev and int(full[2]) == int(
+            counting._count_device(torch.from_numpy(codes).to(dev), 8,
+                                   both)[1])
+        bg_seen = []
+        real_hist = sharded.histogram
+
+        def rec_bg_hist(ids, inc, n_bins, out=None):
+            bg_seen.append((ids.clone(), inc.clone(), n_bins))
+            return real_hist(ids, inc, n_bins, out=out)
+
+        zero()
+        lengths = np.array([len(s) for s in ss.sequences], dtype=np.int32)
+        sharded.histogram = rec_bg_hist
+        try:
+            bg = sharded.count_bg_kmers_sharded(codes, 2, mesh,
+                                                lengths=lengths)
+        finally:
+            sharded.histogram = real_hist
+        rec["bg_launches"] = H.LAUNCHES
+        assert len(bg_seen) == 12
+        assert H.LAUNCHES == 12, "4 shards x 3 orders of background counts"
+        for g, w in zip(bg, count_kmers(ss.sequences, 2)):
+            assert np.array_equal(g, w), "sharded background counts differ"
+        print(f"  count_patterns_sharded (4 shards, {rec['batch_launches']} "
+              f"launches) == count_patterns "
+              f"({rec['count_patterns_launches']} launch) == host scan; "
+              f"count_bg_kmers_sharded ({rec['bg_launches']} launches) == "
+              f"native count_kmers", flush=True)
+        # shard 0's three background tables are the first three launches
+        for tag, (ids, inc, n_bins) in (
+                ("count_patterns", seen[0]), ("shard_batch", seen[1]),
+                ("shard_bg_kmers_0", bg_seen[0]),
+                ("shard_bg_kmers_1", bg_seen[1]),
+                ("shard_bg_kmers_2", bg_seen[2])):
+            k_ms, p_ms, same, err, lib_ms = time_pair(ids, inc, n_bins,
+                                                      library=True)
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            b_ms = bound_ms(ids.numel(), n_bins)
+            rec[tag] = dict(n=ids.numel(), n_bins=n_bins, ms=k_ms,
+                            plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms)
+            assert same, f"kernel != plain on the {tag} input"
+            print(f"  {tag} input n_bins={n_bins} n={ids.numel()}: kernel "
+                  f"{k_ms:.4f} ms ({100 * b_ms / k_ms:.1f}% of the "
+                  f"{b_ms:.4f} ms bound), plain {p_ms:.4f} ms, library "
+                  f"{lib_ms:.4f} ms", flush=True)
+
+    def cli(argv, out):
+        log = io.StringIO()
+        wall, timing = run_cli(argv + ["--device", "cuda", "--timing", "-o",
+                                       out], log)
+        return wall, timing, read_bytes(out), log.getvalue()
+
+    with phase("mesh on the card: the CLI with --devices"):
+        runs, walls = {}, {"mesh": [], "single": []}
+        for label in ("mesh", "single", "single", "mesh"):
+            main_path = label == "mesh" and "cli_mesh_launches" not in rec
+            if main_path:
+                zero()  # the mesh main-path run starts here
+            wall, timing, meme, log = cli(
+                [large_fasta, "-w", "10", "--engine", "tpu"]
+                + (["--devices", "1"] if label == "mesh" else []),
+                os.path.join(tmp, f"cli_{label}.meme"))
+            if main_path:
+                rec["cli_mesh_launches"] = H.LAUNCHES
+                rec["cli_mesh_tier_launches"] = dict(H.TIER_LAUNCHES)
+            assert engine.LAST_ENGINE_USED == "gpu"
+            assert runs.setdefault(label, (meme, log)) == (meme, log)
+            walls[label].append(wall)
+            print(f"  51.2 Mbases w10 --engine tpu {label:>6}: wall "
+                  f"{wall:.3f} s; --timing: " + ", ".join(
+                      f"{k} {v:.1f} ms" for k, v in timing.items()),
+                  flush=True)
+        print(f"  --devices 1 main-path histogram launches: "
+              f"{rec['cli_mesh_launches']} {rec['cli_mesh_tier_launches']}; "
+              f"walls mesh {walls['mesh']}, single {walls['single']}",
+              flush=True)
+        assert all(v > 0 for v in rec["cli_mesh_tier_launches"].values()), \
+            "a kernel of the mesh main path was launched no time"
+        assert runs["mesh"] == runs["single"], \
+            "--devices 1: MEME or stdout differs from the single-device run"
+        mafk = os.path.join(GOLDEN, "MafK.fasta")
+        with count_on("device"):
+            zero()
+            _, _, mesh_meme, mesh_log = cli(
+                [mafk, "-w", "8", "--engine", "exact", "--devices", "1"],
+                os.path.join(tmp, "exact_mesh.meme"))
+            rec["cli_exact_mesh_launches"] = H.LAUNCHES
+            _, _, one_meme, one_log = cli(
+                [mafk, "-w", "8", "--engine", "exact"],
+                os.path.join(tmp, "exact_one.meme"))
+        assert engine.LAST_ENGINE_USED == "exact"
+        # the batch count and the three background tables
+        assert rec["cli_exact_mesh_launches"] == 4, rec
+        assert (mesh_meme, mesh_log) == (one_meme, one_log)
+        assert mesh_meme == read_bytes(os.path.join(GOLDEN, "mafk_w8.meme"))
+        print(f"  MafK w8 --engine exact --devices 1 (count on the card, "
+              f"{rec['cli_exact_mesh_launches']} launches): identical to the "
+              f"run without --devices and to the golden file", flush=True)
+        from peng_motif_tpu_torch.cli import main as cli_main
+
+        n = torch.cuda.device_count() + 1
+        err = io.StringIO()
+        refused = os.path.join(tmp, "refused.meme")
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(err):
+            rc = cli_main([mafk, "-w", "8", "--devices", str(n), "-o",
+                           refused])
+        assert rc != 0 and not os.path.exists(refused)
+        assert f"requested {n} devices, only {n - 1} available" \
+            in err.getvalue(), err.getvalue()
+        print(f"  --devices {n} on this machine: exit {rc}, "
+              f"{err.getvalue().strip()!r}", flush=True)
+        with contextlib.redirect_stdout(io.StringIO()):
+            dryrun_multichip(1, "cuda")
+        print("  dryrun_multichip(1, cuda): mesh run byte-equal to the "
+              "single-device run", flush=True)
+    return rec
+
+
+def run_process_phase(tmp, large_fasta, dev, scale_rec):
+    """Phase 9 (see the module docstring): two processes on the one
+    card, then NCCL at world size 1 against ``scale_rec``, the recorded
+    single-device count of the 51.2-Mbase corpus."""
+    import re
+
+    import numpy as np
+
+    from peng_motif_tpu_torch.bench_histogram import bound_ms
+    from peng_motif_tpu_torch.io.fasta import load_sequence_set
+    from peng_motif_tpu_torch.native import pack_codes_fused_native
+    from peng_motif_tpu_torch.ops import histogram as H
+    from peng_motif_tpu_torch.ops import stream_count
+    from peng_motif_tpu_torch.parallel import multihost, sharded
+
+    report = re.compile(
+        r"rank (\d+) of 2 counted chunk rows \[(\d+), (\d+)\) on (\d+) x "
+        r"(\w+), histogram launches (\d+) \(shared (\d+), l2 (\d+)\), "
+        r"backend (\w+)")
+
+    def rank_reports(errs):
+        """Each rank's own account of its count, from its stderr."""
+        out = []
+        for pid, err in enumerate(errs):
+            m = report.search(err)
+            assert m, f"process {pid} did not report its count:\n{err[-3000:]}"
+            rank, lo, hi, n_dev, kind, n, shared, l2 = (
+                int(g) if g.isdigit() else g for g in m.groups()[:8])
+            assert rank == pid
+            out.append(dict(rank=rank, rows=[lo, hi], devices=n_dev,
+                            device=kind, launches=n,
+                            tier_launches={"shared": shared, "l2": l2},
+                            backend=m.group(9)))
+        return out
+
+    def job(fasta, w, stem):
+        """(wall, MEME bytes, the stderr of process 0 and of process 1) of
+        the 2-process job."""
+        out0 = os.path.join(tmp, f"{stem}_p0.meme")
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "peng_motif_tpu_torch", fasta, "-w", w,
+             "--device", "cuda", "--engine", "tpu", "--timing",
+             "--num-processes", "2", "--process-id", str(pid),
+             "--coordinator", f"localhost:{port}"]
+            + (["-o", out0] if pid == 0 else []),
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for pid in (0, 1)]
+        results = []
+        try:
+            for p in procs:
+                out, err = p.communicate(timeout=300)
+                results.append((p.returncode, out, err))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall = time.perf_counter() - t0
+        for pid, (rc, out, err) in enumerate(results):
+            assert rc == 0, f"process {pid} exited {rc}:\n{err[-3000:]}"
+        assert results[1][1] == "", "a worker process printed to stdout"
+        return wall, read_bytes(out0), [r[2] for r in results]
+
+    def single(fasta, w, stem):
+        out = os.path.join(tmp, f"{stem}_single.meme")
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "peng_motif_tpu_torch", fasta, "-w", w,
+             "--device", "cuda", "--engine", "tpu", "--timing", "-o", out],
+            cwd=REPO, capture_output=True, text=True, timeout=300)
+        assert p.returncode == 0, p.stderr[-3000:]
+        return time.perf_counter() - t0, read_bytes(out), p.stderr
+
+    def timing_of(err):
+        return ", ".join(ln[len("[TIMING] "):] for ln in err.splitlines()
+                         if ln.startswith("[TIMING] "))
+
+    ranks = {}
+    with phase("two processes, one card"):
+        for fasta, w, stem in (
+                (os.path.join(GOLDEN, "MafK.fasta"), "10", "mafk_w10"),
+                (large_fasta, "10", "large_w10")):
+            wall2, meme2, errs = job(fasta, w, stem)
+            wall1, meme1, err1 = single(fasta, w, stem)
+            ranks[stem] = reps = rank_reports(errs)
+            print(f"  {stem}: 2-process job wall {wall2:.3f} s (process "
+                  f"start to exit; --timing of process 0: "
+                  f"{timing_of(errs[0])}), 1-process job wall {wall1:.3f} s "
+                  f"({timing_of(err1)}); MEME identical {meme2 == meme1}",
+                  flush=True)
+            for r in reps:
+                print(f"    rank {r['rank']}: chunk rows {r['rows']} on "
+                      f"{r['devices']} x {r['device']}, histogram launches "
+                      f"{r['launches']} {r['tier_launches']}, backend "
+                      f"{r['backend']}", flush=True)
+                # the 4**10 table alone (no fused background): the L2 tier
+                assert r["device"] == "cuda" and r["launches"] > 0, r
+                assert r["tier_launches"] == {"shared": 0,
+                                              "l2": r["launches"]}, r
+                # the two ranks share the card, and NCCL refuses that
+                assert r["backend"] == "gloo", r
+            assert reps[0]["rows"][0] == 0
+            assert reps[0]["rows"][1] == reps[1]["rows"][0]
+            assert meme2 == meme1, f"{stem}: 2-process MEME != 1-process MEME"
+
+    with phase("one rank's block of the 51.2-Mbase corpus, in this process"):
+        sset = load_sequence_set(large_fasta)
+        stream, lay = stream_count.build_stream(
+            sset.sequences, 10, flat_codes=sset._flat_codes)
+        per, lay = sharded.shard_layout(lay, 2)
+        want = ranks["large_w10"][1]
+        assert want["rows"] == [per, 2 * per], (want, per)
+        rows = pack_codes_fused_native(
+            stream_count.chunk_rows(stream, lay)[per : 2 * per])
+        del stream
+        seen = []
+
+        def hist(real, ids, inc, n_bins, out):
+            seen.append((ids.clone(), inc.clone(), n_bins))
+            return real(ids, inc, n_bins, out=out)
+
+        before = H.LAUNCHES
+        with stream_histogram(hist):
+            sharded.stream_counts_over_mesh(rows, None, lay.row, lay.ctx, 10,
+                                            True, -1, (dev,), per, base=per)
+        assert H.LAUNCHES - before == len(seen) == want["launches"], \
+            (H.LAUNCHES - before, len(seen), want)
+        ids, inc, n_bins = seen[0]
+        k_ms, p_ms, same, err, lib_ms = time_pair(ids, inc, n_bins,
+                                                  library=True)
+        b_ms = bound_ms(ids.numel(), n_bins)
+        print(f"  rank 1's block, rows [{per}, {2 * per}): {len(seen)} "
+              f"launch(es) as the rank reported; input n_bins={n_bins} "
+              f"n={ids.numel()} counted={int(inc.sum())}: kernel {k_ms:.4f} "
+              f"ms ({100 * b_ms / k_ms:.1f}% of the {b_ms:.4f} ms bound), "
+              f"plain {p_ms:.4f} ms, library {lib_ms:.4f} ms, bit-identical "
+              f"{same}", flush=True)
+        assert same and err == 0, "kernel != plain on a rank's block"
+        block = dict(n=ids.numel(), n_bins=n_bins, ms=k_ms, plain_ms=p_ms,
+                     library_ms=lib_ms, bound_ms=b_ms, max_abs_err=err)
+        del seen, ids, inc, rows
+
+    with phase("NCCL at world size 1"):
+        before = H.LAUNCHES
+        t0 = time.perf_counter()
+        ctx = multihost.init_multihost(f"localhost:{free_port()}", 1, 0,
+                                       timeout_s=120, device=dev)
+        t1 = time.perf_counter()
+        try:
+            assert multihost.LAST_BACKEND == ctx.backend == "nccl", ctx
+            assert ctx.device.type == "cuda" and ctx.shards == (1,)
+            bg = multihost.multihost_bg_counts(ctx, sset.sequences, 2)
+            t2 = time.perf_counter()
+            counts, ltot = multihost.multihost_stream_counts(
+                ctx, sset.sequences, 10, True, flat_codes=sset._flat_codes)
+            t3 = time.perf_counter()
+        finally:
+            multihost.shutdown_multihost()
+        launches = H.LAUNCHES - before
+        print(f"  LAST_BACKEND {multihost.LAST_BACKEND}: init {t1 - t0:.3f} "
+              f"s, background counts {t2 - t1:.3f} s, stream count "
+              f"{t3 - t2:.3f} s, histogram launches {launches}, ltot {ltot}",
+              flush=True)
+        assert launches > 0, "the multi-process count launched no kernel"
+        assert np.array_equal(counts, scale_rec.counts), \
+            "world-of-one count table != single-device count table"
+        assert ltot == scale_rec.ltot
+        assert all(np.array_equal(a, b) for a, b in zip(bg, scale_rec.bg))
+        print("  count table, ltot and background counts equal to the "
+              "single-device run's", flush=True)
+    return {"two_processes": ranks, "rank_block": block,
+            "backend_world_of_one": multihost.LAST_BACKEND,
+            "nccl_launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -861,6 +1349,7 @@ def main() -> int:
         assert memes["kernel"] == memes["plain"], "w10: MEME bytes differ"
         print("  w10 kernel vs plain: count table, ltot, background counts "
               "and MEME bytes identical", flush=True)
+        scale_rec = recs["kernel"]
 
         # the kernel on the exact inputs the main path handed it
         main_inputs = recs["kernel"].inputs
@@ -879,6 +1368,8 @@ def main() -> int:
                 kernel_ms, plain_ms, library_ms, bound = (k_ms, p_ms, lib_ms,
                                                           b_ms)
         assert kernel_ms is not None, "no 4**10 table in the main path"
+        scale_rec.inputs = {}
+        del main_inputs
 
         sset = load_sequence_set(fasta)
         recs = {}
@@ -924,6 +1415,9 @@ def main() -> int:
 
     exact = run_exact_phase(big.name, fasta)
     max_err = max(max_err, exact["max_abs_err"])
+    mesh = run_mesh_phase(big.name, fasta, dev, n_bases)
+    max_err = max(max_err, mesh.pop("max_abs_err"))
+    procs = run_process_phase(big.name, fasta, dev, scale_rec)
     big.cleanup()
 
     # launches / ms / plain_ms / library_ms / bound_ms: the device engine's
@@ -932,7 +1426,12 @@ def main() -> int:
     # exact_*: the exact engine's batch device count on the same corpus;
     # tier_launches: the main path's launches per kernel (the background
     # table goes to the shared tier, the 4**10 table to the L2 tier);
-    # tiers: what the dispatcher took per table size at 50M ids
+    # tiers: what the dispatcher took per table size at 50M ids; mesh:
+    # the sharded call sites (launches of the mesh-of-4 count and of the
+    # --devices 1 main path, each counted from 0; the kernel on one
+    # shard's inputs); processes: each rank's own report of the 2-process
+    # jobs (rows counted, launches, transport), the kernel on one rank's
+    # block, and the transport and launches of the world of one
     print(json.dumps({"kernels": [{
         "name": "histogram", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,
@@ -943,7 +1442,8 @@ def main() -> int:
         "exact_launches": exact["launches"], "exact_ms": exact["ms"],
         "exact_plain_ms": exact["plain_ms"],
         "exact_bound_ms": exact["bound_ms"],
-        "exact_library_ms": exact["library_ms"]}]}), flush=True)
+        "exact_library_ms": exact["library_ms"],
+        "mesh": mesh, "processes": procs}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

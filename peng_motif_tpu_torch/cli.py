@@ -3,26 +3,37 @@
 Mirrors the reference CLI surface exactly (reference:
 src/Global.cpp:77-375, src/main.cpp:18-84), including its hand-rolled
 parsing behaviors: unknown options warn and are ignored; odd pattern
-lengths are rejected with exit code 4.  The port adds ``--device``; of
-the reference package's extensions it runs ``--engine``, the checkpoint
-flags, ``--profile`` (a torch.profiler trace) and ``--timing``, and the
-multi-device flags, not ported yet, exit with an error instead of being
-ignored.
+lengths are rejected with exit code 4.  The port adds ``--device`` and
+runs the reference package's extensions: ``--engine``, the checkpoint
+flags, ``--profile`` (a torch.profiler trace), ``--timing``,
+``--devices`` (the count sharded over a device mesh) and the
+multi-process flags (the count sharded over processes joined by
+torch.distributed).
 """
 
 from __future__ import annotations
 
 import sys
 
+import numpy as np
+
 from . import __version__
 from .checkpoint import CheckpointError
 from .device import DEVICES, DeviceUnavailable, resolve_device
-from .io.fasta import FastaFormatError, load_sequence_set
+from .io.fasta import FastaFormatError, load_sequence_set, read_fasta_lengths
 from .models.background import BackgroundModel
 from .output import write_json, write_meme
+from .parallel.mesh import make_data_mesh
+from .parallel.multihost import (
+    init_multihost,
+    multihost_bg_counts,
+    multihost_stream_counts,
+    shutdown_multihost,
+)
+from .parallel.sharded import count_bg_kmers_sharded
 from .pattern_tables import OptimizationScore, Strand
 from .pipeline import Peng, PengParameters, resolve_engine
-from .utils.logging_utils import set_verbosity, torch_profile
+from .utils.logging_utils import get_logger, set_verbosity, torch_profile
 
 HELP = """
 =================================================================
@@ -125,9 +136,15 @@ HELP = """
       --save-checkpoint <DIR>  persist count table + background model
       --load-checkpoint <DIR>  resume from a persisted count table
       --timing                 print per-phase wall-clock timings
-
- Not yet ported (rejected with an error): --devices, --num-processes,
- --process-id, --coordinator.
+      --devices <N>            shard the count over N devices: cuda:0..N-1
+                               (more than the machine has is an error), or
+                               N shards in turn on --device cpu; with
+                               --num-processes, the devices of each process
+      --num-processes <N>      multi-process run: total process count
+      --process-id <I>         multi-process run: this process's index
+                               (process 0 writes all output)
+      --coordinator <HOST:PORT>
+                               multi-process run: rendezvous address
 
 =================================================================
 """
@@ -141,15 +158,19 @@ def _need_value(args, i, flag):
     return args[i + 1]
 
 
-# the reference package's extensions that this package does not run yet
-_NOT_PORTED = ("--devices", "--num-processes", "--process-id",
-               "--coordinator")
-
-
-def _not_ported(flag: str):
-    print(f"Error: {flag} is not yet ported to peng_motif_tpu_torch",
-          file=sys.stderr)
-    sys.exit(4)
+def _need_count(args, i, flag, minimum):
+    """The integer following ``flag``, at least ``minimum``."""
+    val = _need_value(args, i, flag)
+    try:
+        n = int(val)
+    except ValueError:
+        n = None
+    if n is None or n < minimum:
+        print(HELP)
+        print(f"{flag} takes an integer >= {minimum}, got {val!r}",
+              file=sys.stderr)
+        sys.exit(4)
+    return n
 
 
 def parse_args(argv):
@@ -194,11 +215,15 @@ def parse_args(argv):
         "verbosity": 2,
         "threads": 1,
         "device": "cuda",
+        "devices": None,
         "engine": "auto",
         "profile": None,
         "save_checkpoint": None,
         "load_checkpoint": None,
         "timing": False,
+        "num_processes": 1,
+        "process_id": 0,
+        "coordinator": "localhost:29500",
     }
 
     i = 2
@@ -307,24 +332,84 @@ def parse_args(argv):
             cfg["device"] = val
         elif arg == "--timing":
             cfg["timing"] = True
-        elif arg in _NOT_PORTED:
-            _not_ported(arg)
+        elif arg == "--devices":
+            cfg["devices"] = _need_count(argv, i, arg, 1); i += 1
+        elif arg == "--num-processes":
+            cfg["num_processes"] = _need_count(argv, i, arg, 1); i += 1
+        elif arg == "--process-id":
+            cfg["process_id"] = _need_count(argv, i, arg, 0); i += 1
+        elif arg == "--coordinator":
+            cfg["coordinator"] = _need_value(argv, i, arg); i += 1
         else:
             print(f"Ignoring unknown option {arg}", file=sys.stderr)
         i += 1
     return cfg
 
 
+def _run_multihost_worker(cfg, ctx) -> int:
+    """A process other than 0 of a multi-process run: take part in the
+    two collective phases (background sum, sharded stream count) without
+    parsing the full corpus — a lengths-only scan plus range decodes of
+    this block's sequences — and neither print nor write anything.  The
+    order of the collectives must mirror process 0's exactly."""
+    bg_path = cfg["background_sequences"] or cfg["input"]
+    bg_model_order = max(cfg["bg_model_order"], cfg["max_opt_bg_model_order"])
+    try:
+        lengths = read_fasta_lengths(cfg["input"])
+        if bg_path == cfg["input"]:
+            multihost_bg_counts(ctx, None, bg_model_order,
+                                input_path=cfg["input"],
+                                n_total=len(lengths))
+        else:
+            bg_set = load_sequence_set(bg_path)
+            multihost_bg_counts(ctx, bg_set.sequences, bg_model_order)
+        multihost_stream_counts(
+            ctx, None, cfg["pattern_length"],
+            cfg["strand"] == Strand.BOTH_STRANDS,
+            input_path=cfg["input"], lengths=lengths)
+    except OSError as e:
+        print(f"Error: Cannot open FASTA file: {e.filename or e}",
+              file=sys.stderr)
+        return 1
+    except FastaFormatError as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
+    return 0
+
+
 def main(argv=None):
     argv = list(sys.argv) if argv is None else ["peng_motif"] + list(argv)
     cfg = parse_args(argv)
     set_verbosity(cfg["verbosity"])
+    multihost = cfg["num_processes"] > 1
     try:
         device = resolve_device(cfg["device"])
-    except DeviceUnavailable as e:
+        # the mesh of --devices: the whole run's without --num-processes,
+        # each process's local one with it
+        mesh = (make_data_mesh(cfg["devices"], device)
+                if cfg["devices"] is not None else None)
+    except (DeviceUnavailable, ValueError) as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1
+    if not multihost:
+        return _run(cfg, device, mesh, None)
+    ctx = init_multihost(cfg["coordinator"], cfg["num_processes"],
+                         cfg["process_id"], device=device, mesh=mesh)
+    try:
+        if cfg["process_id"] != 0:
+            # worker process: no full parse, no output
+            return _run_multihost_worker(cfg, ctx)
+        get_logger().info(
+            f"multi-process count: {ctx.world} processes, "
+            f"{sum(ctx.shards)} shards, backend {ctx.backend}")
+        return _run(cfg, device, None, ctx)
+    finally:
+        shutdown_multihost()
 
+
+def _run(cfg, device, mesh, ctx) -> int:
+    """The job of a single process, or of process 0 of a multi-process
+    run (``ctx``: its parallel/multihost.MultihostContext)."""
     try:
         sequence_set = load_sequence_set(cfg["input"])
         # the reference always constructs a second SequenceSet for the
@@ -355,19 +440,45 @@ def main(argv=None):
     # fused-histogram gates hold (the engine re-checks and starts the
     # threaded host scan otherwise, or on a fallback to the exact engine).
     defer_bg = (
-        bg_path == cfg["input"]
+        ctx is None
+        and bg_path == cfg["input"]
         and bg_model_order <= 3
         and cfg["pattern_length"] >= 5  # fused bg needs ctx = 2(W-1) >= 8
         and not cfg["load_checkpoint"]
         and resolve_engine(cfg["engine"], device,
                            cfg["pattern_length"]) == "tpu"
     )
-    # lazy: the (k+1)-mer scan runs in a thread and overlaps the device
-    # count (first .v access joins)
-    bg_model = BackgroundModel(
-        bg_set.sequences, order=bg_model_order, interpolate=True,
-        defer=defer_bg, lazy=not defer_bg,
-    )
+    if ctx is not None:
+        # background (k+1)-mer vectors summed over the processes
+        bg_model = BackgroundModel(
+            counts=multihost_bg_counts(ctx, bg_set.sequences,
+                                       bg_model_order),
+            order=bg_model_order, interpolate=True)
+    elif mesh is not None and not defer_bg:
+        # sharded (k+1)-mer scan summed over the mesh (reference serial
+        # analogue: src/shared/BackgroundModel.cpp:59-84)
+        lengths = np.array([len(s) for s in bg_set.sequences],
+                           dtype=np.int32)
+        bg_model = BackgroundModel(
+            counts=count_bg_kmers_sharded(bg_set.padded(), bg_model_order,
+                                          mesh, lengths=lengths),
+            order=bg_model_order, interpolate=True)
+    else:
+        # lazy: the (k+1)-mer scan runs in a thread and overlaps the
+        # device count (first .v access joins)
+        bg_model = BackgroundModel(
+            bg_set.sequences, order=bg_model_order, interpolate=True,
+            defer=defer_bg, lazy=not defer_bg,
+        )
+
+    precomputed = None
+    if ctx is not None:
+        # the one corpus-wide phase: the stream count sharded over every
+        # process's devices and summed; process 0 alone goes on from here
+        precomputed = multihost_stream_counts(
+            ctx, sequence_set.sequences, cfg["pattern_length"],
+            cfg["strand"] == Strand.BOTH_STRANDS,
+            flat_codes=getattr(sequence_set, "_flat_codes", None))
 
     peng = Peng(
         cfg["strand"], cfg["bg_model_order"], cfg["max_opt_bg_model_order"],
@@ -392,9 +503,11 @@ def main(argv=None):
         max_optimized_patterns=cfg["max_optimized_patterns"],
         max_merged_length=cfg["max_merged_length"],
         device=device,
+        mesh=mesh,
         engine=cfg["engine"],
         save_checkpoint=cfg["save_checkpoint"],
         load_checkpoint=cfg["load_checkpoint"],
+        precomputed=precomputed,
         threads=cfg["threads"] if cfg["threads"] > 1 else 0,
     )
 

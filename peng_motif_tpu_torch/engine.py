@@ -1,8 +1,11 @@
 """The device engine: the five device programs of the main path.
 
-Counterpart of ``peng_motif_tpu/engine_tpu.py::process_tpu`` on its
-single-device branch.  Every 4**W table stays on the torch device from
-counting to EM:
+Counterpart of ``peng_motif_tpu/engine_tpu.py::process_tpu``.  Every
+4**W table stays on the torch device from counting to EM (with
+``params.mesh`` the count is sharded over the mesh's devices,
+parallel/sharded.py, and the table is resident on its first; with
+``params.precomputed`` the multi-process count, parallel/multihost.py,
+has already produced it):
 
   1. count   — the gap-packed halo-chunk stream (ops/stream_count.py) is
                packed on host, copied to the device and counted there by
@@ -63,17 +66,8 @@ from .native import (
 from .ops import flat_tables as ft
 from .ops.climb import ClimbOverflow, WalkTrace, replay_walks, run_walks
 from .ops.em import em_optimize_flat
-from .ops.stream_count import (
-    bg_offset,
-    build_stream,
-    chunked_packed,
-    chunked_packed2,
-    from_reference_buffer,
-    stream_count_device_fused,
-    stream_count_device_fused2,
-    stream_fixup_pairs,
-    wire2_eligible,
-)
+from .ops.stream_count import bg_offset, stream_fixup_pairs
+from .parallel.sharded import stream_count_sharded
 from .pattern_tables import Strand
 from .utils import numerics
 
@@ -118,40 +112,24 @@ def _deliver_bg(bgm, bg_words, bg_corr):
         for k in range(bgm.order + 1)])
 
 
-def count_on_device(sequences, W: int, both: bool, device, bg_order: int,
-                    flat=None, n_undef=None):
-    """Device stream count of ``sequences``: (stream, layout, out), with
-    ``out`` the device tuple of ``stream_count_device_fused(2)`` —
-    (mirrored counts, canonical vals, ltot, suspicion, bg) — before the
-    host fix-up (ops/stream_count.stream_fixup_pairs)."""
-    stream, lay = build_stream(sequences, W, flat_codes=flat)
-    wire2 = n_undef is not None and wire2_eligible(lay, n_undef)
-    packed = chunked_packed2(stream, lay) if wire2 else chunked_packed(
-        stream, lay)
-    buf, meta = from_reference_buffer(packed, lay, wire2, device)
-    if wire2:
-        out = stream_count_device_fused2(buf, meta, lay.row, lay.ctx, W,
-                                         both, bg_order)
-    else:
-        out = stream_count_device_fused(buf, lay.row, lay.ctx, W, both,
-                                        bg_order)
-    return stream, lay, out
-
-
 def _fetch(out):
-    """Host copies of a device count's non-resident outputs: (vals int32,
-    ltot, susp bool, bg int32 or None)."""
+    """Host copies of the non-resident outputs of the device count
+    (parallel/sharded.stream_count_sharded's ``out``): (vals int32, ltot,
+    susp bool, bg int32 or None)."""
     _counts, vals, ltot, susp, bg = out
     return (vals.cpu().numpy(), int(ltot), susp.cpu().numpy(),
             None if bg is None else bg.cpu().numpy())
 
 
-def _count_phase(peng, W: int, both: bool, device):
+def _count_phase(peng, W: int, both: bool, device, mesh=None):
     """(counts_host, ltot, counts_dev, fix_ids, fix_dv): the device count
     with its host completions, under the reference's background-deferral
     gates (engine_tpu.py:808-827).  ``counts_host`` is the exact mirrored
     table; ``counts_dev`` is the resident device table before the fix-up
-    pairs (``fix_ids``, ``fix_dv``) that :func:`stats_program` adds."""
+    pairs (``fix_ids``, ``fix_dv``) that :func:`stats_program` adds.
+    The chunks shard over ``mesh`` (parallel/sharded.stream_count_sharded;
+    one shard on ``device`` without a mesh) and the table is resident on
+    the mesh's first device."""
     sset = peng.sequence_set
     bgm = peng.bg_model
     flat = getattr(sset, "_flat_codes", None)
@@ -176,12 +154,12 @@ def _count_phase(peng, W: int, both: bool, device):
     if not defer_bg:
         bgm.start_host_counting()  # no-op unless deferred
 
-    stream, lay, out = count_on_device(
-        sset.sequences, W, both, device, bg_order, flat=flat,
-        n_undef=n_undef)
+    stream, lay, out = stream_count_sharded(
+        sset.sequences, W, both, mesh or (torch.device(device),),
+        flat_codes=flat, bg_order=bg_order, n_undefined=n_undef)
     if defer_bg:
         # host completion of the fused histogram (models/background.py),
-        # computed while the device count is in flight
+        # computed while the device count (every shard's) is in flight
         bg_corr = bg_device_corrections(
             sset.sequences, bgm.order, flat_codes=flat, lengths=lay.lengths)
     vals, ltot, susp_np, bg_words = _fetch(out)
@@ -402,12 +380,17 @@ def process_gpu(peng, params) -> List[Motif]:
     # selection (the z-score seed sort must reproduce libstdc++ tie
     # placement, reference: src/base_pattern.cpp:443-458) ----------------
     with peng.timer.phase("count"):
-        if params.load_checkpoint:
-            loaded = load_checkpoint(params.load_checkpoint, W,
-                                     peng.strand.name)
-            if loaded is None:
-                raise EngineFallback("no usable checkpoint")
-            # the checkpointed table goes to the device as it is, with an
+        if params.precomputed is not None or params.load_checkpoint:
+            if params.precomputed is not None:
+                # externally counted table (the multi-process count,
+                # parallel/multihost.py): phases 2-5 run in this process
+                loaded = params.precomputed
+            else:
+                loaded = load_checkpoint(params.load_checkpoint, W,
+                                         peng.strand.name)
+                if loaded is None:
+                    raise EngineFallback("no usable checkpoint")
+            # the finished table goes to the device as it is, with an
             # empty fix-up (engine_tpu.py:778-796)
             counts_host = np.asarray(loaded[0], dtype=np.int32)
             ltot = int(loaded[1])
@@ -415,7 +398,7 @@ def process_gpu(peng, params) -> List[Motif]:
             fix_ids = fix_dv = np.zeros(0, dtype=np.int32)
         else:
             counts_host, ltot, counts_dev, fix_ids, fix_dv = _count_phase(
-                peng, W, both, device)
+                peng, W, both, device, mesh=params.mesh)
         if ltot >= (1 << 31):
             # int32 count-table bound
             raise EngineFallback("ltot >= 2**31")

@@ -165,6 +165,62 @@ def read_fasta(
     return sset
 
 
+def _walk_fasta_records(filepath: str):
+    """Yield per-record lists of sequence-line strings with exactly the
+    quirks of :func:`read_fasta` (unterminated-final-line drop, \\r
+    strip, blank-line skip, empty-entry skip, space error).  Records
+    that :func:`read_fasta` ignores (no sequence) are not yielded, so
+    indices align with ``SequenceSet.sequences``."""
+    with open(filepath) as f:
+        content = f.read()
+    lines = content.split("\n")
+    if not content.endswith("\n"):
+        lines = lines[:-1]
+    header_seen = False
+    chunks: List[str] = []
+    for line in lines:
+        line = line.rstrip("\r")
+        if not line:
+            continue
+        if line[0] == ">":
+            if header_seen and chunks:
+                yield chunks
+            header_seen = True
+            chunks = []
+        elif header_seen:
+            if " " in line:
+                raise FastaFormatError(
+                    f"FASTA sequence contains space character: {filepath}")
+            chunks.append(line)
+        else:
+            raise FastaFormatError(f"Wrong FASTA format: {filepath}")
+    if header_seen and chunks:
+        yield chunks
+
+
+def read_fasta_lengths(filepath: str) -> np.ndarray:
+    """Sequence lengths only — no encoding, no warnings.  For the worker
+    processes of a multi-process count, which need the global stream
+    layout (all lengths) but only their own shard's bases; lengths here
+    are identical to a full :func:`read_fasta`."""
+    return np.array([sum(len(c) for c in chunks)
+                     for chunks in _walk_fasta_records(filepath)],
+                    dtype=np.int64)
+
+
+def read_fasta_ranges(filepath: str, spans, alphabet: Alphabet = STANDARD):
+    """Decode only the records whose index falls in one of ``spans``
+    (half-open [a, b) pairs).  Returns {index: codes}.  Encoding is the
+    same LUT as :func:`read_fasta`; warnings are not emitted (worker
+    processes never print)."""
+    want = sorted((int(a), int(b)) for a, b in spans)
+    out = {}
+    for i, chunks in enumerate(_walk_fasta_records(filepath)):
+        if any(a <= i < b for a, b in want):
+            out[i] = alphabet.encode("".join(chunks))
+    return out
+
+
 def load_sequence_set(filepath: str, alphabet: Alphabet = STANDARD) -> SequenceSet:
     """Load via the native C++ parser; the pure-Python parser serves
     what the native one declines (non-standard alphabets, unreadable

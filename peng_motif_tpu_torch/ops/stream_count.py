@@ -178,20 +178,6 @@ def chunked_packed2(stream: np.ndarray, lay: StreamLayout) -> np.ndarray:
         stream, lay.m_pad, lay.row, lay.core, lay.ctx)
 
 
-def from_reference_buffer(buf_np: np.ndarray, lay: StreamLayout,
-                          wire2: bool, device):
-    """Device inputs of the count from the exact numpy wire buffer and
-    layout that the reference package's count program takes: (buf
-    [m_pad, row_nbytes] uint8 on ``device``, meta), ``meta`` being
-    (seq_len, stream_len) on the 2-bit wire and None otherwise."""
-    nb = row_nbytes2(lay.row) if wire2 else row_nbytes(lay.row)
-    buf = torch.from_numpy(
-        np.ascontiguousarray(buf_np, dtype=np.uint8).reshape(-1, nb))
-    buf = buf.to(device)
-    meta = (int(lay.lengths[0]), int(lay.stream_len)) if wire2 else None
-    return buf, meta
-
-
 # ---------------------------------------------------------------------------
 # device program
 # ---------------------------------------------------------------------------
@@ -379,39 +365,33 @@ def _accumulated_local_counts(buf2d: torch.Tensor, row: int, ctx: int,
     return counts, ltot, susp, bg
 
 
-def stream_count_device_fused(buf: torch.Tensor, row: int, ctx: int,
-                              length: int, both_strands: bool,
-                              bg_order: int = -1):
-    """Counting over the chunked stream (3-bit wire: 2-bit codes + N
-    mask).  Returns (counts [4**W] int32 mirrored, vals int32 canonical
-    slice, ltot int64, suspicious [m_pad] bool, bg int32 [bg_nbins] or
-    None), all on ``buf``'s device."""
-    if buf.dim() == 1:
-        buf = buf.view(-1, row_nbytes(row))
-    counts, ltot, susp, bg = _accumulated_local_counts(
-        buf, row, ctx, length, both_strands, bg_order)
-    counts, vals = stream_compact(counts, length, both_strands)
-    return counts, vals, ltot, susp, bg
+def stream_shard_counts(buf: torch.Tensor, meta, row: int, ctx: int,
+                        length: int, both_strands: bool, bg_order: int = -1,
+                        base: int = 0):
+    """The count of one run of chunk rows, on ``buf``'s device, before
+    the mirror: (counts [4**W] int32 un-mirrored, ltot int64, suspicious
+    [rows] bool, bg int32 [bg_nbins] or None).  Per-shard tables of one
+    corpus add up to the whole corpus's.
 
-
-def stream_count_device_fused2(buf: torch.Tensor, meta, row: int, ctx: int,
-                               length: int, both_strands: bool,
-                               bg_order: int = -1):
-    """:func:`stream_count_device_fused` on the 2-bit wire; ``meta`` is
-    (seq_len, stream_len)."""
-    if buf.dim() == 1:
-        buf = buf.view(-1, row_nbytes2(row))
+    ``meta`` picks the wire: None for the 3-bit wire (2-bit codes + N
+    mask), (seq_len, stream_len) for the 2-bit wire, whose validity rule
+    needs global stream positions: ``base`` is the global chunk index of
+    row 0 (0 for a whole corpus, ``i * per`` for shard ``i`` of a mesh).
+    Nothing here waits for the device."""
+    if meta is None:
+        return _accumulated_local_counts(
+            buf.view(-1, row_nbytes(row)), row, ctx, length, both_strands,
+            bg_order)
     seq_len, stream_len = int(meta[0]), int(meta[1])
     core = row - length + 1 - ctx
 
     def codes_fn(sl, g0):
-        return _unpack_codes2(sl, row, g0, core, ctx, length, seq_len,
+        return _unpack_codes2(sl, row, base + g0, core, ctx, length, seq_len,
                               stream_len)
 
-    counts, ltot, susp, bg = _accumulated_local_counts(
-        buf, row, ctx, length, both_strands, bg_order, codes_fn=codes_fn)
-    counts, vals = stream_compact(counts, length, both_strands)
-    return counts, vals, ltot, susp, bg
+    return _accumulated_local_counts(
+        buf.view(-1, row_nbytes2(row)), row, ctx, length, both_strands,
+        bg_order, codes_fn=codes_fn)
 
 
 # ---------------------------------------------------------------------------

@@ -70,13 +70,15 @@ class PatternTables:
     Mirrors the phase-1 construction order of the reference BasePattern
     ctor (src/base_pattern.cpp:17-64): background tables, double-strand
     aggregation, counting, expected counts, log p-values, z-scores.
-    ``precomputed`` = (counts, ltot) (a loaded checkpoint) skips the
-    count.
+    ``precomputed`` = (counts, ltot) (a loaded checkpoint, or the
+    multi-process count) skips the count; with a ``mesh`` the sequences
+    shard over its devices and the tables are summed
+    (parallel/sharded.count_patterns_sharded).
     """
 
     def __init__(self, pattern_length: int, strand: Strand, k: int,
                  max_k: int, padded_codes: np.ndarray, bg_model,
-                 n_sequences: int, device, precomputed=None,
+                 n_sequences: int, device, mesh=None, precomputed=None,
                  zscore_threshold=None):
         self.pattern_length = W = pattern_length
         self.strand = strand
@@ -89,7 +91,12 @@ class PatternTables:
         # the count starts first, so the scan overlaps the background
         # model (a lazily counting model joins on .v) and its table
         job = None
-        if precomputed is None:
+        if precomputed is None and mesh is not None:
+            from .parallel.sharded import count_patterns_sharded  # noqa: PLC0415
+
+            precomputed = count_patterns_sharded(padded_codes, W, self.both,
+                                                 mesh)
+        elif precomputed is None:
             job = counting.CountJob(padded_codes, W, self.both, device)
         v_host = [np.asarray(vk, dtype=np.float32)
                   for vk in bg_model.v[: self.max_k + 1]]

@@ -100,8 +100,13 @@ class PengParameters:
     device: torch.device = torch.device("cuda")
     # "tpu" (the device engine), "exact" or "auto" (resolve_engine)
     engine: str = "auto"
+    # mesh for sharded counting (parallel/mesh.make_data_mesh: a tuple of
+    # torch devices); None counts on ``device`` alone
+    mesh: Optional[tuple] = None
     save_checkpoint: Optional[str] = None  # persist count table + bg model
     load_checkpoint: Optional[str] = None  # resume from a persisted table
+    precomputed: Optional[tuple] = None    # (counts_np, ltot) from an
+    #                                        external count (multi-process)
     threads: int = 0                       # native EM threads (0 = auto)
 
 
@@ -179,7 +184,7 @@ class Peng:
         current_k = min(W - 1, self.k)
         current_max_k = min(W - 1, self.max_k)
 
-        precomputed = None
+        precomputed = params.precomputed
         if params.load_checkpoint:
             loaded = load_checkpoint(
                 params.load_checkpoint, W, self.strand.name)
@@ -190,7 +195,7 @@ class Peng:
             tables = PatternTables(
                 W, self.strand, current_k, current_max_k,
                 self.sequence_set.padded(), self.bg_model, self.n_sequences,
-                params.device, precomputed=precomputed,
+                params.device, mesh=params.mesh, precomputed=precomputed,
                 zscore_threshold=params.zscore_threshold)
 
         if params.save_checkpoint:

@@ -33,6 +33,10 @@ from peng_motif_tpu_torch.ops import em as tem
 from peng_motif_tpu_torch.ops import flat_tables as tft
 from peng_motif_tpu_torch.ops import histogram as th
 from peng_motif_tpu_torch.ops import stream_count as tsc
+from peng_motif_tpu_torch.models import background as tbg
+from peng_motif_tpu_torch.parallel import multihost as tmh
+from peng_motif_tpu_torch.parallel import sharded as tsh
+from peng_motif_tpu_torch.parallel.mesh import make_data_mesh
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "golden")
@@ -140,21 +144,137 @@ def test_stream_count_on_card_matches_cpu(wire2, cuda):
     else:
         seqs = [rng.integers(0, 5, size=int(n)).astype(np.uint8)
                 for n in rng.integers(3, 3000, size=200)]
-    stream, lay = tsc.build_stream(seqs, W)
-    pack = tsc.chunked_packed2 if wire2 else tsc.chunked_packed
-    buf_np = pack(stream, lay)
+    flat = np.concatenate(seqs)
     outs = {}
     for dev in ("cpu", cuda):
-        buf, meta = tsc.from_reference_buffer(buf_np, lay, wire2, dev)
-        if wire2:
-            out = tsc.stream_count_device_fused2(buf, meta, lay.row,
-                                                 lay.ctx, W, True, 2)
-        else:
-            out = tsc.stream_count_device_fused(buf, lay.row, lay.ctx, W,
-                                                True, 2)
+        _, lay, out = tsh.stream_count_sharded(
+            seqs, W, True, (torch.device(dev),), flat_codes=flat, bg_order=2)
+        assert tsc.wire2_eligible(lay, int((flat == 0).sum())) == wire2
         outs[str(dev)] = [t.cpu() for t in out]
     for a, b in zip(outs["cpu"], outs[str(cuda)]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("wire2", [False, True], ids=["mask", "wire2"])
+def test_stream_count_sharded_on_card_matches_cpu(wire2, cuda):
+    """Four shards on the one card (every shard launches the kernel for
+    both tables) against four shards on the CPU: identical integers."""
+    rng = np.random.default_rng(6)
+    W = 8
+    if wire2:
+        seqs = [rng.integers(1, 5, size=400).astype(np.uint8)
+                for _ in range(300)]
+    else:
+        seqs = [rng.integers(0, 5, size=int(n)).astype(np.uint8)
+                for n in rng.integers(3, 3000, size=200)]
+    flat = np.concatenate(seqs)
+    before = dict(th.TIER_LAUNCHES)
+    outs = {}
+    for dev in ("cpu", cuda):
+        _, lay, out = tsh.stream_count_sharded(
+            seqs, W, True, (torch.device(dev),) * 4, flat_codes=flat,
+            bg_order=2)
+        assert tsc.wire2_eligible(lay, int((flat == 0).sum())) == wire2
+        outs[str(dev)] = [t.cpu() for t in out]
+    # 4 shards x (the 4**8 table + the background table), shared tier
+    assert th.TIER_LAUNCHES["shared"] == before["shared"] + 8
+    for a, b in zip(outs["cpu"], outs[str(cuda)]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("both", [True, False], ids=["both", "plus"])
+def test_batch_and_bg_counts_sharded_on_card_match_cpu(both, cuda):
+    rng = np.random.default_rng(12)
+    codes = rng.integers(1, 5, size=(301, 640)).astype(np.uint8)
+    codes[rng.random(codes.shape) < 0.01] = 0
+    codes[4, :128] = np.tile(np.array([1, 3], dtype=np.uint8), 64)
+    host = tcnt.CountJob(codes, 8, both, "cpu").finish()
+    before = th.LAUNCHES
+    got = tsh.count_patterns_sharded(codes, 8, both, (cuda,) * 4)
+    assert th.LAUNCHES == before + 4
+    np.testing.assert_array_equal(got[0], host[0])
+    assert got[1] == host[1]
+    full = tsh.count_device_full_sharded(codes, 8, both, (cuda,) * 4)
+    cpu = tsh.count_device_full_sharded(codes, 8, both,
+                                        make_data_mesh(4, "cpu"))
+    for a, b in zip(full[:4], cpu[:4]):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+    lengths = rng.integers(600, 641, size=codes.shape[0]).astype(np.int32)
+    seqs = [codes[i, : lengths[i]] for i in range(codes.shape[0])]
+    before = th.LAUNCHES
+    bg = tsh.count_bg_kmers_sharded(codes, 2, (cuda,) * 4, lengths=lengths)
+    assert th.LAUNCHES == before + 4 * 3
+    for g, w in zip(bg, tbg.count_kmers(seqs, 2)):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_mesh_beyond_the_machine_is_an_error(cuda, tmp_path, capsys):
+    """More cards than the machine has: make_data_mesh raises and the
+    CLI exits with that error; neither runs on the cards there are."""
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(ValueError, match=f"requested {n} devices, only "
+                                         f"{n - 1} available"):
+        make_data_mesh(n, cuda)
+    assert make_data_mesh(None, cuda) == tuple(
+        torch.device("cuda", i) for i in range(n - 1))
+    out = tmp_path / "o.meme"
+    rc = main([os.path.join(GOLDEN_DIR, "MafK_100seqs.fasta"), "-w", "8",
+               "--devices", str(n), "-o", str(out)])
+    assert rc != 0 and not out.exists()
+    assert f"requested {n} devices" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("engine_flag", ["tpu", "exact"])
+def test_cli_devices_one_on_card(engine_flag, cuda, tmp_path):
+    """--devices 1 --device cuda: the mesh paths of both engines launch
+    the kernel and reproduce the run without --devices byte for byte."""
+    outs = {}
+    for label, extra in (("mesh", ["--devices", "1"]), ("single", [])):
+        th.LAUNCHES = 0
+        meme = tmp_path / f"{label}.meme"
+        assert main([os.path.join(GOLDEN_DIR, "MafK.fasta"), "-w", "8",
+                     "--device", "cuda", "--engine", engine_flag, "-o",
+                     str(meme)] + extra) == 0
+        if label == "mesh":
+            # exact: one batch count + three background tables
+            assert th.LAUNCHES == (2 if engine_flag == "tpu" else 4)
+        outs[label] = meme.read_bytes()
+    assert outs["mesh"] == outs["single"]
+    if engine_flag == "exact":
+        with open(os.path.join(GOLDEN_DIR, "mafk_w8.meme"), "rb") as g:
+            assert outs["mesh"] == g.read()
+
+
+def test_world_of_one_on_card_takes_nccl(cuda):
+    """One process that owns its card: the collectives go over NCCL, on
+    device tensors, and the count equals the host scan."""
+    import socket
+
+    rng = np.random.default_rng(4)
+    seqs = [rng.integers(0, 5, size=int(n)).astype(np.uint8)
+            for n in rng.integers(3, 3000, size=200)]
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = tmh.init_multihost(f"localhost:{port}", 1, 0, timeout_s=120,
+                             device=cuda)
+    try:
+        assert tmh.LAST_BACKEND == ctx.backend == "nccl"
+        assert ctx.device.type == "cuda" and ctx.group is not None
+        before = th.LAUNCHES
+        counts, ltot = tmh.multihost_stream_counts(ctx, seqs, 8, True)
+        assert th.LAUNCHES > before
+        bg = tmh.multihost_bg_counts(ctx, seqs, 2)
+    finally:
+        tmh.shutdown_multihost()
+    codes = np.zeros((len(seqs), max(len(s) for s in seqs)), dtype=np.uint8)
+    for i, s in enumerate(seqs):
+        codes[i, : len(s)] = s
+    want, want_ltot = tcnt.CountJob(codes, 8, True, "cpu").finish()
+    np.testing.assert_array_equal(counts, want)
+    assert ltot == want_ltot
+    for g, w in zip(bg, tbg.count_kmers(seqs, 2)):
+        np.testing.assert_array_equal(g, w)
 
 
 def _within_tol(got, want, tol=5e-6, rel=1e-6):

@@ -55,7 +55,27 @@ _check_clean()
 print(len(names))
 ''')
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 26
+    assert int(proc.stdout.split()[-1]) >= 31
+
+
+def test_parallel_modules_import_without_jax():
+    """The sharded and multi-process counts stand alone too: parallel/
+    imports, a mesh run goes through, and torch.distributed is the only
+    distribution layer loaded."""
+    proc = _run(r'''
+import numpy as np
+from peng_motif_tpu_torch.parallel import dryrun, mesh, multihost, sharded
+rng = np.random.default_rng(0)
+codes = rng.integers(0, 5, size=(9, 40)).astype(np.uint8)
+counts, ltot = sharded.count_patterns_sharded(
+    codes, 4, True, mesh.make_data_mesh(4, "cpu"))
+assert counts.sum() > 0 and ltot > 0
+assert "torch.distributed" in sys.modules
+_check_clean()
+print("ok")
+''')
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "ok"
 
 
 def test_cli_golden_without_jax(tmp_path):
@@ -133,3 +153,16 @@ sys.exit(rc)
             / "libpengnative.so").exists()
     for got, stem in ((meme, "mafk100_w8.meme"), (js, "mafk100_w8.json")):
         assert _read(got) == _read(os.path.join(GOLDEN_DIR, stem)), stem
+    # the same from the copy over a mesh of two shards
+    meme2 = str(tmp_path / "o2.meme")
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCK + r'''
+from peng_motif_tpu_torch.cli import main
+rc = main(sys.argv[1:])
+_check_clean()
+sys.exit(rc)
+''', str(fasta), "-w", "8", "--device", "cpu", "--devices", "2", "--engine",
+         "exact", "-o", meme2],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    assert _read(meme2) == _read(os.path.join(GOLDEN_DIR, "mafk100_w8.meme"))

@@ -3,8 +3,7 @@ the pieces under it) against the reference package's JAX programs.
 
 Both packages get the same numpy inputs, made from a seed: the same
 corpora as tests/test_stream_count.py, and the exact wire buffer the
-reference's count program takes (``from_reference_buffer``).  The port
-runs on CPU tensors, so its histogram takes the plain version.  Counts,
+reference's count program takes.  The port runs on CPU tensors, so its histogram takes the plain version.  Counts,
 ltot, suspicion flags and background counts must be bit-identical.
 """
 
@@ -22,6 +21,9 @@ from peng_motif_tpu_torch.models import background as tbg
 from peng_motif_tpu_torch.ops import counting as tcnt
 from peng_motif_tpu_torch.ops import encoding as tenc
 from peng_motif_tpu_torch.ops import stream_count as tsc
+from peng_motif_tpu_torch.parallel import sharded as tsh
+
+CPU1 = (torch.device("cpu"),)   # the single-device count: a mesh of one
 
 ROW = jsc.ROW
 
@@ -127,15 +129,19 @@ def _reference_fused(buf_np, lay, W, both, bg_order, wire2):
     return np.asarray(counts), vals.astype(np.int32), ltot, susp, bg
 
 
+def _port_buffer(buf_np, lay, wire2):
+    """The reference's wire buffer as the port's count takes it: (buf
+    [m_pad, row bytes] uint8, meta)."""
+    nb = tsc.row_nbytes2(lay.row) if wire2 else tsc.row_nbytes(lay.row)
+    meta = (int(lay.lengths[0]), int(lay.stream_len)) if wire2 else None
+    return torch.from_numpy(buf_np).view(-1, nb), meta
+
+
 def _port_fused(buf_np, lay, W, both, bg_order, wire2):
-    buf, meta = tsc.from_reference_buffer(buf_np, lay, wire2, "cpu")
-    if wire2:
-        out = tsc.stream_count_device_fused2(buf, meta, lay.row, lay.ctx, W,
-                                             both, bg_order)
-    else:
-        out = tsc.stream_count_device_fused(buf, lay.row, lay.ctx, W, both,
-                                            bg_order)
-    counts, vals, ltot, susp, bg = out
+    buf, meta = _port_buffer(buf_np, lay, wire2)
+    counts, ltot, susp, bg = tsc.stream_shard_counts(
+        buf, meta, lay.row, lay.ctx, W, both, bg_order)
+    counts, vals = tsc.stream_compact(counts, W, both)
     assert counts.dtype == torch.int32 and vals.dtype == torch.int32
     assert vals.shape == (tcnt._n_canonical(W) if both else 4 ** W,)
     return (_np(counts), _np(vals), int(ltot), _np(susp),
@@ -195,7 +201,7 @@ def test_slab_loop_matches_reference(both, wire, monkeypatch):
         stream, lay)
     bg_order = 2
     core = lay.row - W + 1 - lay.ctx
-    buf, meta = tsc.from_reference_buffer(buf_np, lay, wire2, "cpu")
+    buf, meta = _port_buffer(buf_np, lay, wire2)
     jbuf = jnp.asarray(buf_np).reshape(buf.shape)
 
     jcodes_fn = tcodes_fn = None
@@ -339,7 +345,8 @@ def test_device_bg_plus_corrections_match_reference_scan(W):
              np.array([2], np.uint8), np.array([0], np.uint8),
              rng.integers(1, 5, size=3000).astype(np.uint8)]
     K = 3 if W == 10 else 2
-    stream, lay, out = teng.count_on_device(seqs, W, True, "cpu", K)
+    stream, lay, out = tsh.stream_count_sharded(seqs, W, True, CPU1,
+                                                bg_order=K)
     bg = _np(out[4]).astype(np.int64)
     corr = tbg.bg_device_corrections(seqs, K, lengths=lay.lengths)
     want = jbg.count_kmers(seqs, K)
@@ -404,7 +411,7 @@ def test_count_with_fixup_matches_reference_scan(corpus):
     equals the transcription of the reference's rolling scan."""
     seqs, W = CORPORA[corpus]()
     for both in (True, False):
-        stream, lay, out = teng.count_on_device(seqs, W, both, "cpu", -1)
+        stream, lay, out = tsh.stream_count_sharded(seqs, W, both, CPU1)
         vals, ltot, susp, _ = teng._fetch(out)
         counts = teng._mirror_host(vals, W, both)
         ids, dvs, ltot_delta = tsc.stream_fixup_pairs(stream, lay, susp, both)
