@@ -93,9 +93,58 @@ caught):
                NCCL at world size 1, in this process (init_multihost +
                multihost_stream_counts + multihost_bg_counts on the
                51.2-Mbase corpus): LAST_BACKEND == "nccl", table, ltot
-               and background counts equal to the single-device run's.
+               and background counts equal to the single-device run's;
+ 10. parity  — the cases of the reference's hardware parity list that
+               phase 4 lacks (MafK_100seqs -w 8 with --strand PLUS, with
+               LOGPVAL and with ENRICHMENT, MafK_100seqs -w 12, the
+               merge-heavy MafK -w 8 -t 5) through --device cuda --engine
+               tpu against the golden files (5e-6 + 1e-6 relative; 2e-5
+               for the merge-heavy case), every phase on the device and
+               the kernel launched; then a 20-Mbase corpus (10,000 x 2,000
+               bp, seed 13) at -w 8, device engine against exact engine:
+               no fallback, every non-float token of the MEME file and of
+               stdout equal, floats within 1e-4 + 1e-5 relative;
+ 11. entry   — graft_entry.entry() on the card: the output lives on the
+               card, one histogram launch (held against the plain version
+               and timed on that input), z-scores within 1e-6 of the same
+               function on the CPU; then the rank-W tensor ops at W = 8 on
+               the MafK count, card against CPU: bg_prob_table +
+               aggregate_double_strand bit-identical (and equal to the
+               flat table), aggregate_batch counts identical and floats
+               within 1e-5 relative, em_optimize iteration counts
+               identical and PWMs within 5e-6;
+ 12. hybrid  — the host+device co-count (ops/hybrid.py).  The two
+               shares' rates on the 51.2-Mbase corpus at -w 8, 10, 12,
+               each alone and beside the other (why the planner plans no
+               split).  Then the count phase with the whole corpus on
+               the card and with the whole corpus on the host, in turns,
+               at -w 8, 10, 12 over MafK_100seqs, MafK and prefixes of
+               the 51.2-Mbase corpus from 8 sequences up: the walls behind
+               the planner's defaults, the cost model fitted to them, and
+               for each corpus the end the defaults plan beside the end
+               that was faster.  Then the 51.2-Mbase corpus and MafK at
+               -w 10 and MafK_100seqs at -w 12 through the CLI with the
+               device share forced to 1, 0.5 and 0 and left to the
+               planner: count table, ltot, background counts, MEME bytes
+               and stdout identical across the four, LAST_HYBRID_FRAC as
+               forced or planned (the planner must take the card for the
+               first and the host for the last: a default run on each
+               side), the device share's kernel launches printed (0 at
+               fraction 0) and the kernel held against the plain version
+               on each run's ids; job and count-phase walls of the
+               planner against the pure device count, in turns, medians
+               of eight runs each (four at -w 12).  The same identity for
+               the count phase alone at 51.2 Mbases -w 12, where the
+               resident table with its addends must equal the host table,
+               and there the walls of the planner's choice, the pure
+               device count and the host-only count in turns;
+ 13. shoot   — python -m peng_motif_tpu_torch.shoot on MafK_100seqs -w 8
+               --no-scoring, on the card and on the CPU: both exit 0, MEME
+               and JSON within the engine tolerance of each other.
 
-The last two lines are the kernels' JSON record and the run's result,
+Every phase but 12 runs with PENG_HYBRID_DEVICE_FRAC=1 (the whole corpus
+on the card).  The last two lines are the kernels' JSON record and the run's
+result,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits non-zero before any phase.
 """
@@ -109,6 +158,7 @@ import sys
 import tempfile
 import time
 import types
+from statistics import median
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "golden")
@@ -126,9 +176,10 @@ def phase(name):
           flush=True)
 
 
-def within_tolerance(got: str, want: str) -> bool:
+def within_tolerance(got: str, want: str, tol_abs=TOL_ABS,
+                     tol_rel=TOL_REL) -> bool:
     """Identical line/token structure; numeric tokens within
-    TOL_ABS + TOL_REL * |want|."""
+    tol_abs + tol_rel * |want|, every other token equal."""
     a_lines, b_lines = got.splitlines(), want.splitlines()
     if len(a_lines) != len(b_lines):
         return False
@@ -143,7 +194,7 @@ def within_tolerance(got: str, want: str) -> bool:
                 fx, fy = float(x), float(y)
             except ValueError:
                 return False
-            if abs(fx - fy) > TOL_ABS + TOL_REL * abs(fy):
+            if fx != fy and not abs(fx - fy) <= tol_abs + tol_rel * abs(fy):
                 return False
     return True
 
@@ -245,8 +296,8 @@ def write_large_corpus(path):
 
 
 class Recorder:
-    """Wraps the engine's count phase, background delivery and the
-    stream count's histogram to keep what one run computed: the exact
+    """Wraps the engine's count phase and the stream count's histogram
+    to keep what one run computed: the exact
     count table and ltot, the background counts, the count-phase wall,
     and the first input of each table size handed to the histogram."""
 
@@ -262,50 +313,60 @@ class Recorder:
         self.counts = self.ltot = self.bg = None
         self.count_s = 0.0
         self.inputs = {}
-        real_phase, real_deliver = engine._count_phase, engine._deliver_bg
+        real_phase = engine._count_phase
         real_hist = stream_count.histogram
         hist = H.histogram_plain if self.plain else real_hist
 
-        def count_phase(*a, **k):
+        def count_phase(peng, *a, **k):
             t0 = time.perf_counter()
-            out = real_phase(*a, **k)
+            out = real_phase(peng, *a, **k)
             self.count_s += time.perf_counter() - t0
             self.counts, self.ltot = out[0], out[1]
+            # delivered by the count phase (the fused device histogram,
+            # the co-count's host share, or both)
+            self.bg = [n.copy() for n in peng.bg_model.n]
             return out
-
-        def deliver(bgm, bg_words, bg_corr):
-            real_deliver(bgm, bg_words, bg_corr)
-            self.bg = [n.copy() for n in bgm.n]
 
         def histogram(ids, inc, n_bins, out=None):
             if n_bins not in self.inputs:
                 self.inputs[n_bins] = (ids.clone(), inc.clone())
             return hist(ids, inc, n_bins, out=out)
 
-        engine._count_phase, engine._deliver_bg = count_phase, deliver
+        engine._count_phase = count_phase
         stream_count.histogram = histogram
         try:
             yield self
         finally:
-            engine._count_phase, engine._deliver_bg = real_phase, real_deliver
+            engine._count_phase = real_phase
             stream_count.histogram = real_hist
 
 
 @contextlib.contextmanager
-def count_on(where):
-    """The exact engine's count on the host (the default) or, for
-    ``where == "device"``, forced onto the card's batch count
-    (PENG_COUNT_HOST_MAX_BASES=0)."""
-    key = "PENG_COUNT_HOST_MAX_BASES"
+def environ(key, value):
+    """``os.environ[key]`` set to ``value`` or, for None, unset."""
     old = os.environ.pop(key, None)
-    if where == "device":
-        os.environ[key] = "0"
+    if value is not None:
+        os.environ[key] = str(value)
     try:
         yield
     finally:
         os.environ.pop(key, None)
         if old is not None:
             os.environ[key] = old
+
+
+def count_on(where):
+    """The exact engine's count on the host (the default) or, for
+    ``where == "device"``, forced onto the card's batch count
+    (PENG_COUNT_HOST_MAX_BASES=0)."""
+    return environ("PENG_COUNT_HOST_MAX_BASES",
+                   "0" if where == "device" else None)
+
+
+def device_frac(frac):
+    """The co-count's device share (ops/hybrid.py) forced to ``frac``
+    through PENG_HYBRID_DEVICE_FRAC or, for None, left to the planner."""
+    return environ("PENG_HYBRID_DEVICE_FRAC", frac)
 
 
 class ExactRecorder:
@@ -735,10 +796,6 @@ def run_mesh_phase(tmp, large_fasta, dev, n_bases):
     rec = {"max_abs_err": 0}
     W, both, bg_order = 10, True, 2
 
-    def zero():
-        H.LAUNCHES = 0
-        H.TIER_LAUNCHES.update(shared=0, l2=0)
-
     with phase("mesh on the card: stream_count_sharded, 51.2 Mbases -w 10"):
         sset = load_sequence_set(large_fasta)
         flat, n_undef = sset._flat_codes, sset.n_undefined
@@ -762,7 +819,7 @@ def run_mesh_phase(tmp, large_fasta, dev, n_bases):
                     fn = real if version == "kernel" else H.histogram_plain
                     return fn(ids, inc, n_bins, out=out)
 
-                zero()
+                zero_launches()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 with stream_histogram(hist):
@@ -840,11 +897,11 @@ def run_mesh_phase(tmp, large_fasta, dev, n_bases):
         counting.histogram = rec_hist
         try:
             # the whole batch on the card, then four shards of it
-            zero()
+            zero_launches()
             single, single_ltot = counting.count_patterns(
                 torch.from_numpy(codes).to(dev), 8, both)
             rec["count_patterns_launches"] = H.LAUNCHES
-            zero()
+            zero_launches()
             got, got_ltot = sharded.count_patterns_sharded(codes, 8, both,
                                                            mesh)
         finally:
@@ -866,7 +923,7 @@ def run_mesh_phase(tmp, large_fasta, dev, n_bases):
             bg_seen.append((ids.clone(), inc.clone(), n_bins))
             return real_hist(ids, inc, n_bins, out=out)
 
-        zero()
+        zero_launches()
         lengths = np.array([len(s) for s in ss.sequences], dtype=np.int32)
         sharded.histogram = rec_bg_hist
         try:
@@ -913,7 +970,7 @@ def run_mesh_phase(tmp, large_fasta, dev, n_bases):
         for label in ("mesh", "single", "single", "mesh"):
             main_path = label == "mesh" and "cli_mesh_launches" not in rec
             if main_path:
-                zero()  # the mesh main-path run starts here
+                zero_launches()  # the mesh main-path run starts here
             wall, timing, meme, log = cli(
                 [large_fasta, "-w", "10", "--engine", "tpu"]
                 + (["--devices", "1"] if label == "mesh" else []),
@@ -938,7 +995,7 @@ def run_mesh_phase(tmp, large_fasta, dev, n_bases):
             "--devices 1: MEME or stdout differs from the single-device run"
         mafk = os.path.join(GOLDEN, "MafK.fasta")
         with count_on("device"):
-            zero()
+            zero_launches()
             _, _, mesh_meme, mesh_log = cli(
                 [mafk, "-w", "8", "--engine", "exact", "--devices", "1"],
                 os.path.join(tmp, "exact_mesh.meme"))
@@ -1152,6 +1209,611 @@ def run_process_phase(tmp, large_fasta, dev, scale_rec):
             "nccl_launches": launches}
 
 
+def zero_launches():
+    from peng_motif_tpu_torch.ops import histogram as H
+
+    H.LAUNCHES = 0
+    H.TIER_LAUNCHES.update(shared=0, l2=0)
+
+
+def write_wide_corpus(path):
+    """The 20-Mbase corpus of the reference's hardware test
+    (tests_hw/test_hw_parity.py::test_large_corpus_wide_path): 10,000 x
+    2,000 bp, seed 13, ~25% of the sequences carrying TGACTCAC."""
+    import numpy as np
+
+    rng = np.random.default_rng(13)
+    let = np.frombuffer(b"ACGT", dtype=np.uint8)
+    n_seq, L = 10_000, 2_000
+    rows = let[rng.integers(0, 4, size=(n_seq, L))]
+    mot = np.frombuffer(b"TGACTCAC", dtype=np.uint8)
+    pos = rng.integers(0, L - 8, size=n_seq)
+    for i in np.flatnonzero(rng.random(n_seq) < 0.25):
+        rows[i, pos[i] : pos[i] + 8] = mot
+    with open(path, "wb") as f:
+        for i in range(n_seq):
+            f.write(b">s%d\n" % i)
+            f.write(rows[i].tobytes())
+            f.write(b"\n")
+    return n_seq * L
+
+
+def run_parity_phase(tmp):
+    """Phase 10 (see the module docstring)."""
+    from peng_motif_tpu_torch import engine
+    from peng_motif_tpu_torch.ops import histogram as H
+
+    with phase("parity: the reference's hardware cases (--device cuda)"):
+        cases = [
+            ("mafk100_w8_plus", ["MafK_100seqs.fasta", "-w", "8", "--strand",
+                                 "PLUS"]),
+            ("mafk100_w8_logpval", ["MafK_100seqs.fasta", "-w", "8",
+                                    "--optimization_score", "LOGPVAL"]),
+            ("mafk100_w8_enrich", ["MafK_100seqs.fasta", "-w", "8",
+                                   "--optimization_score", "ENRICHMENT"]),
+            ("mafk100_w12", ["MafK_100seqs.fasta", "-w", "12"]),
+            ("mafk_w8_rich", ["MafK.fasta", "-w", "8", "-t", "5",
+                              "--minimum-processed-patterns", "25"])]
+        for stem, args in cases:
+            out = os.path.join(tmp, f"parity_{stem}.meme")
+            before = H.LAUNCHES
+            wall, _ = run_cli([os.path.join(GOLDEN, args[0])] + args[1:]
+                              + ["--device", "cuda", "--engine", "tpu", "-o",
+                                 out])
+            got = read_bytes(out).decode()
+            want = read_bytes(os.path.join(GOLDEN, f"{stem}.meme")).decode()
+            tol = 2e-5 if stem == "mafk_w8_rich" else TOL_ABS
+            ok = within_tolerance(got, want, tol_abs=tol)
+            _, d_cell, d_hdr = compare_outputs(got, want)
+            print(f"  {stem}: wall {wall:.3f} s, within {tol:g} + "
+                  f"{TOL_REL:g} relative of golden {ok} (max PWM-cell "
+                  f"difference {d_cell:.3g}, header {d_hdr:.3g} relative), "
+                  f"byte-identical {got == want}, histogram launches "
+                  f"{H.LAUNCHES - before}", flush=True)
+            assert ok, f"{stem}: MEME output outside the tolerance"
+            assert engine.LAST_ENGINE_USED == "gpu"
+            assert engine.LAST_CLIMB_ENGINE == "device"
+            assert engine.LAST_PWM_ENGINE == "device"
+            assert H.LAUNCHES > before, f"{stem}: no kernel launch"
+
+    with phase("parity: 20 Mbases -w 8, device engine against exact engine"):
+        fasta = os.path.join(tmp, "large20.fasta")
+        n = write_wide_corpus(fasta)
+        runs = {}
+        for eng in ("tpu", "exact"):
+            out = os.path.join(tmp, f"large20_{eng}.meme")
+            log = io.StringIO()
+            before = H.LAUNCHES
+            wall, _ = run_cli([fasta, "-w", "8", "--device", "cuda",
+                               "--engine", eng, "-o", out], log)
+            runs[eng] = (read_bytes(out).decode(), log.getvalue())
+            print(f"  {n} bases --engine {eng}: wall {wall:.3f} s, engine "
+                  f"{engine.LAST_ENGINE_USED}, histogram launches "
+                  f"{H.LAUNCHES - before}", flush=True)
+            # no fallback: the device engine ran to its end
+            assert engine.LAST_ENGINE_USED == (
+                "gpu" if eng == "tpu" else "exact")
+        for what, a, b in (("MEME", runs["tpu"][0], runs["exact"][0]),
+                           ("stdout", runs["tpu"][1], runs["exact"][1])):
+            _, d_cell, d_hdr = compare_outputs(a, b)
+            ok = within_tolerance(a, b, tol_abs=1e-4, tol_rel=1e-5)
+            print(f"  {what}: every non-float token equal and floats within "
+                  f"1e-4 + 1e-5 relative {ok} (max absolute difference "
+                  f"{d_cell:.3g}; header lines {d_hdr:.3g} relative; "
+                  f"byte-identical {a == b})", flush=True)
+            assert ok, f"20 Mbases: {what} of the two engines differs"
+
+
+def run_entry_phase(dev):
+    """Phase 11 (see the module docstring).  Returns the record of
+    ``entry()``'s launch for the kernels line."""
+    import numpy as np
+    import torch
+
+    from peng_motif_tpu_torch import graft_entry
+    from peng_motif_tpu_torch.bench_histogram import bound_ms
+    from peng_motif_tpu_torch.io.fasta import load_sequence_set
+    from peng_motif_tpu_torch.models.background import BackgroundModel
+    from peng_motif_tpu_torch.ops import (bgprobs, counting, em, encoding,
+                                          iupac_sum, stats)
+    from peng_motif_tpu_torch.ops import flat_tables as ft
+    from peng_motif_tpu_torch.ops import histogram as H
+
+    rec = {}
+    with phase("entry(): one forward step on the card"):
+        fn, args = graft_entry.entry()
+        seen = []
+        real_hist = counting.histogram
+
+        def rec_hist(ids, inc, n_bins, out=None):
+            seen.append((ids.clone(), inc.clone(), n_bins))
+            return real_hist(ids, inc, n_bins, out=out)
+
+        counting.histogram = rec_hist
+        try:
+            zero_launches()
+            t0 = time.perf_counter()
+            z = fn(*args)                   # no device named: the card
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+        finally:
+            counting.histogram = real_hist
+        rec["entry_launches"] = H.LAUNCHES
+        rec["entry_tier_launches"] = dict(H.TIER_LAUNCHES)
+        assert z.device.type == "cuda" and z.shape == (4 ** 6,), z
+        assert H.LAUNCHES == len(seen) == 1, (H.LAUNCHES, len(seen))
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        want = fn(*args, device="cpu")
+        assert want.device.type == "cpu"
+        assert bool(torch.isfinite(z).all())
+        diff = float((z.cpu() - want).abs().max())
+        # z = (n - mu) / sqrt(mu) from identical counts and a bit-equal
+        # background table: 1e-6 relative + 1e-6 absolute
+        torch.testing.assert_close(z.cpu(), want, rtol=1e-6, atol=1e-6)
+        print(f"  entry(): output {tuple(z.shape)} on {z.device}, "
+              f"{rec['entry_launches']} histogram launch "
+              f"{rec['entry_tier_launches']}, z-scores card against cpu "
+              f"max abs difference {diff:.3g} "
+              f"(bit-identical {torch.equal(z.cpu(), want)}); wall first call "
+              f"{first * 1e3:.3f} ms, median of 5 more "
+              f"{median(walls) * 1e3:.3f} ms", flush=True)
+        ids, inc, n_bins = seen[0]
+        k_ms, p_ms, same, err, lib_ms = time_pair(ids, inc, n_bins,
+                                                  library=True)
+        b_ms = bound_ms(ids.numel(), n_bins)
+        print(f"  entry() input n_bins={n_bins} n={ids.numel()} "
+              f"counted={int(inc.sum())}: kernel {k_ms:.4f} ms "
+              f"({100 * b_ms / k_ms:.1f}% of the {b_ms:.4f} ms bound), plain "
+              f"{p_ms:.4f} ms, library {lib_ms:.4f} ms, bit-identical {same}",
+              flush=True)
+        assert same and err == 0, "kernel != plain on entry()'s input"
+        rec["entry"] = dict(n=ids.numel(), n_bins=n_bins, ms=k_ms,
+                            plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms,
+                            max_abs_err=err)
+
+    with phase("rank-W tensor ops at W = 8 on the MafK count, card vs cpu"):
+        W = 8
+        ss = load_sequence_set(os.path.join(GOLDEN, "MafK.fasta"))
+        counts_d, ltot = counting.count_patterns(
+            torch.from_numpy(ss.padded()).to(dev), W, True)
+        counts_np = counts_d.cpu().numpy()
+        v_np = BackgroundModel(ss.sequences, order=2).v
+        rng = np.random.default_rng(8)
+        masks_np = rng.integers(0, 2, size=(64, W, 4)).astype(np.int32)
+        pwms_np = rng.dirichlet(np.ones(4), size=(6, W)).astype(np.float32)
+        outs, walls = {}, {}
+        for d in (dev, torch.device("cpu")):
+            def sync():
+                if d.type == "cuda":
+                    torch.cuda.synchronize()
+            t = {}
+            counts = torch.from_numpy(counts_np).to(d)
+            v = [torch.from_numpy(np.asarray(x, np.float32)).to(d)
+                 for x in v_np]
+            masks = torch.from_numpy(masks_np).to(d)
+            sync()
+            t0 = time.perf_counter()
+            bg = bgprobs.bg_prob_table(v, W, 2)
+            agg = bgprobs.aggregate_double_strand(bg)
+            sync()
+            t["bg_prob_table"] = time.perf_counter() - t0
+            flat = ft.aggregate_double_strand_flat(
+                ft.bg_prob_flat(v, W, 2), W)
+            assert torch.equal(encoding.to_flat(agg), flat), \
+                "rank-W background table != the flat one"
+            canon = encoding.canonical_mask(W, d)
+            expected = stats.expected_counts(agg, ltot)
+            floats = torch.stack([expected, agg]) * canon
+            counts_t = encoding.to_tensor(counts, W)
+            sync()
+            t0 = time.perf_counter()
+            c_sum, f_sum = iupac_sum.aggregate_batch(counts_t * canon,
+                                                     floats, masks, True)
+            sync()
+            t["aggregate_batch"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            pwm, iters = em.em_optimize(
+                torch.from_numpy(pwms_np).to(d), counts_t.to(torch.float32),
+                agg, 1e4, 0.08, 20, W)
+            sync()
+            t["em_optimize"] = time.perf_counter() - t0
+            outs[d.type] = [x.cpu() for x in (agg, c_sum, f_sum, pwm, iters)]
+            walls[d.type] = t
+        a, b = outs["cuda"], outs["cpu"]
+        assert torch.equal(a[0], b[0]), "bg_prob_table: card != cpu"
+        assert torch.equal(a[1], b[1]) and int(b[1].max()) > 0, \
+            "aggregate_batch: counts differ"
+        f_rel = float(((a[2] - b[2]).abs() / b[2].abs().clamp_min(1e-30)).max())
+        # three-term sums of 4**8 f32 products, contracted axis by axis
+        torch.testing.assert_close(a[2], b[2], rtol=1e-5, atol=0)
+        assert torch.equal(a[4], b[4]), "em_optimize: iterations differ"
+        d_pwm = float((a[3] - b[3]).abs().max())
+        torch.testing.assert_close(a[3], b[3], rtol=0, atol=5e-6)
+        print(f"  MafK -w 8 ({int(counts_np.sum())} counts, ltot {ltot}): "
+              f"bg_prob_table + aggregate_double_strand bit-identical card "
+              f"vs cpu and to flat_tables; aggregate_batch (64 masks) counts "
+              f"identical, floats within 1e-5 relative (max {f_rel:.3g}); "
+              f"em_optimize (6 motifs) iterations {a[4].tolist()} identical, "
+              f"PWMs within 5e-6 (max {d_pwm:.3g})", flush=True)
+        for k, t in walls.items():
+            print(f"    on {k}: {fmt_walls(t)}", flush=True)
+    return rec
+
+
+def run_hybrid_phase(tmp, large_fasta, dev, n_bases):
+    """Phase 12 (see the module docstring).  Returns the ``hybrid``
+    object of the kernels line."""
+    import numpy as np
+    import torch
+
+    from peng_motif_tpu_torch import engine
+    from peng_motif_tpu_torch.io.fasta import load_sequence_set
+    from peng_motif_tpu_torch.models.background import (BackgroundModel,
+                                                        bg_device_corrections)
+    from peng_motif_tpu_torch.ops import histogram as H
+    from peng_motif_tpu_torch.ops import hybrid as hy
+    from peng_motif_tpu_torch.parallel import sharded
+
+    rec = {"rates": {}, "ends": {}, "planned": {}, "launches": {}, "walls": {}}
+    both, bg_order = True, 2
+    sset = load_sequence_set(large_fasta)
+    flat, lengths = sset._flat_codes, sset._lengths()
+    assert flat is not None and flat.shape[0] == n_bases
+
+    def device_share(n_seq, W):
+        """The device share of the count over the first ``n_seq``
+        sequences, as engine._count_phase runs it: wall from the start of
+        the pack to the fetched slice."""
+        off = int(lengths[:n_seq].sum())
+        seqs = sset.sequences[:n_seq]
+        t0 = time.perf_counter()
+        _stream, lay, out = sharded.stream_count_sharded(
+            seqs, W, both, (dev,), flat_codes=flat[:off], bg_order=bg_order,
+            n_undefined=0)
+        bg_device_corrections(seqs, bg_order, flat_codes=flat[:off],
+                              lengths=lay.lengths)
+        engine._fetch(out)
+        return time.perf_counter() - t0
+
+    def count_phase_wall(ss, W, frac):
+        """engine._count_phase on ``ss`` under a forced device share."""
+        peng = types.SimpleNamespace(
+            sequence_set=ss,
+            bg_model=BackgroundModel(ss.sequences, order=bg_order,
+                                     interpolate=True, defer=True))
+        with device_frac(frac):
+            t0 = time.perf_counter()
+            engine._count_phase(peng, W, both, dev)
+            return time.perf_counter() - t0
+
+    def host_share_wall():
+        share = hy.start_host_share(sset.sequences, lengths, flat, 0, W, both,
+                                    bg_order)
+        share.join()
+        return share.seconds
+
+    with phase("hybrid: the shares' rates, 51.2 Mbases"):
+        # the two shares of a split, each alone and beside the other: why
+        # the planner's defaults (ops/hybrid.py) plan no split
+        few = os.path.join(tmp, "few.fasta")
+        with open(large_fasta, "rb") as f, open(few, "wb") as g:
+            g.writelines(f.readline() for _ in range(16))   # 8 records
+        few_set = load_sequence_set(few)
+        assert few_set.n == 8
+        cores = os.cpu_count()
+        for W in (8, 10, 12):
+            device_share(sset.n, W)                       # warm-up
+            # the latency to a device share's fetched slice
+            lat = median([device_share(8, W) for _ in range(5)])
+            d_alone = median([device_share(sset.n, W) for _ in range(3)])
+            h_alone = median([host_share_wall() for _ in range(2)])
+            host_s, dev_s = [], []
+            for _ in range(3):
+                # both shares over the whole corpus, side by side: each
+                # wall is taken under the other's load
+                share = hy.start_host_share(sset.sequences, lengths, flat, 0,
+                                            W, both, bg_order)
+                dev_s.append(device_share(sset.n, W))
+                share.join()
+                host_s.append(share.seconds)
+            d1 = n_bases / max(d_alone - lat, 1e-9)
+            dc = n_bases / max(median(dev_s) - lat, 1e-9)
+            hc, h1 = n_bases / median(host_s), n_bases / h_alone
+            # what the host share adds to the count's total rate while
+            # both run: its own rate less what it takes from the device
+            # share (they draw on the same cores)
+            h = max(0.0, hc - (d1 - dc))
+            f = 1.0 if h <= 0 else min(1.0, max(0.0, (
+                (n_bases / h - lat) / (n_bases / d1 + n_bases / h))))
+            with device_frac(None):
+                planned = hy.plan_device_fraction(n_bases, W)
+            rec["rates"][str(W)] = dict(
+                device_alone_bases_s=d1, device_beside_bases_s=dc,
+                host_alone_bases_s=h1, host_beside_bases_s=hc,
+                host_net_bases_s=h, share_latency_s=lat, f_star=f)
+            rec["planned"][str(W)] = planned
+            print(f"  w{W}: device share alone {d1 / 1e6:.1f} Mbases/s (wall "
+                  f"{d_alone:.4f} s), beside the host share "
+                  f"{dc / 1e6:.1f} (walls {dev_s}); host share alone "
+                  f"{h1 / 1e6:.1f} Mbases/s (wall {h_alone:.4f} s), beside "
+                  f"the device share {hc / 1e6:.1f} (walls {host_s}); net "
+                  f"host rate {h / 1e6:.1f} Mbases/s; latency to a device "
+                  f"share's fetched slice {lat * 1e3:.3f} ms (8 sequences); "
+                  f"{cores} host cores: a split by the formula at that net "
+                  f"rate, f* = {f:.3f}; the planner's defaults give "
+                  f"{planned:.3f}", flush=True)
+
+    mafk = os.path.join(GOLDEN, "MafK.fasta")
+    mafk100 = os.path.join(GOLDEN, "MafK_100seqs.fasta")
+    with phase("hybrid: the count phase on the card and on the host, by "
+               "corpus size"):
+        # the walls behind the planner's defaults (ops/hybrid.py): the
+        # whole count phase at either end over prefixes of the corpus,
+        # in turns, and the cost model fitted to them
+        ladder = {"8 seqs": few_set, "51.2 Mbases": sset}
+        for n_seq in (500, 5000):
+            path = os.path.join(tmp, f"prefix{n_seq}.fasta")
+            with open(large_fasta, "rb") as f, open(path, "wb") as g:
+                g.writelines(f.readline() for _ in range(2 * n_seq))
+            ss = load_sequence_set(path)
+            assert ss.n == n_seq
+            ladder[f"{ss.total_bases / 1e6:.1f} Mbases"] = ss
+        ladder["MafK_100seqs"] = load_sequence_set(mafk100)
+        ladder["MafK"] = load_sequence_set(mafk)
+        ladder = dict(sorted(ladder.items(),
+                             key=lambda kv: kv[1].total_bases))
+        for W in (8, 10, 12):
+            ends = {}
+            for name, ss in ladder.items():
+                count_phase_wall(ss, W, 1)                # warm-up
+                walls = {1: [], 0: []}
+                for frac in (1, 0, 0, 1, 1, 0):
+                    walls[frac].append(count_phase_wall(ss, W, frac))
+                ends[name] = dict(bases=ss.total_bases,
+                                  device_s=median(walls[1]),
+                                  host_s=median(walls[0]))
+            small, large = ends["8 seqs"], ends["51.2 Mbases"]
+            # seconds per base at either end, from the small corpus to
+            # the large one; the card's can drown in the spread of its
+            # fixed cost (then 0: no rate resolved)
+            lat = small["device_s"] - small["host_s"]
+            span = large["bases"] - small["bases"]
+            per_d = max(large["device_s"] - small["device_s"], 0.0) / span
+            per_h = max(large["host_s"] - small["host_s"], 1e-9) / span
+            with device_frac(None):
+                for name, e in ends.items():
+                    e["planned"] = hy.plan_device_fraction(e["bases"], W)
+                    e["fitted"] = float(
+                        not e["bases"] * per_h < e["bases"] * per_d + lat)
+                    better = float(e["device_s"] <= e["host_s"])
+                    print(f"  w{W} {name} ({e['bases']} bases): count phase "
+                          f"on the card {e['device_s']:.4f} s, on the host "
+                          f"{e['host_s']:.4f} s; the defaults plan "
+                          f"{e['planned']:.0f}, this run's fit "
+                          f"{e['fitted']:.0f}, the faster end {better:.0f}"
+                          + ("" if e["planned"] == better else
+                             f" (the plan costs "
+                             f"{abs(e['device_s'] - e['host_s']):.4f} s)"),
+                          flush=True)
+            cross = (lat / (per_h - per_d) if lat > 0 and per_h > per_d
+                     else None)
+            print(f"  w{W} fit: device count "
+                  + (f"{1e-6 / per_d:.1f} Mbases/s" if per_d else
+                     "at no resolved rate (its walls' spread exceeds B/d)")
+                  + f", host count {1e-6 / per_h:.1f} Mbases/s, fixed cost "
+                  f"of a device count less the host count's "
+                  f"{lat * 1e3:.1f} ms; "
+                  + ("the card at every size" if cross is None else
+                     f"the host below {cross / 1e6:.1f} Mbases")
+                  + f" ({cores} host cores)", flush=True)
+            rec["ends"][str(W)] = dict(
+                corpora=ends, device_s_per_base=per_d, host_s_per_base=per_h,
+                latency_s=lat, crossover_bases=cross)
+
+    def cli(fasta, w, frac, out):
+        """One job under a forced fraction (None: the planner's)."""
+        r = Recorder()
+        log = io.StringIO()
+        with device_frac(frac), r.active():
+            zero_launches()
+            wall, _ = run_cli([fasta, "-w", w, "--device", "cuda", "--engine",
+                               "tpu", "-o", out], log)
+            r.launches = H.LAUNCHES
+            r.tier_launches = dict(H.TIER_LAUNCHES)
+        assert engine.LAST_ENGINE_USED == "gpu"
+        r.frac, r.wall = engine.LAST_HYBRID_FRAC, wall
+        r.meme, r.log = read_bytes(out), log.getvalue()
+        return r
+
+    for stem, fasta, w, turns in (("large_w10", large_fasta, "10", 4),
+                                  ("mafk_w10", mafk, "10", 4),
+                                  ("mafk100_w12", mafk100, "12", 2)):
+        with phase(f"hybrid: {stem} through the CLI, forced and planned"):
+            with device_frac(None):
+                planned = hy.plan_device_fraction(
+                    load_sequence_set(fasta).total_bases, int(w))
+            runs = {}
+            for frac in (1, 0.5, 0, None):
+                r = cli(fasta, w, frac,
+                        os.path.join(tmp, f"hy_{stem}_{frac}.meme"))
+                runs[frac] = r
+                want = planned if frac is None else float(frac)
+                assert r.frac == want, (stem, frac, r.frac, want)
+                print(f"  {stem} frac "
+                      f"{'planned' if frac is None else frac}: "
+                      f"LAST_HYBRID_FRAC {r.frac:.4f}, device share's "
+                      f"histogram launches {r.launches} {r.tier_launches}, "
+                      f"wall {r.wall:.3f} s, count phase {r.count_s:.3f} s, "
+                      f"ltot {r.ltot}", flush=True)
+                assert (r.launches == 0) == (r.frac == 0.0), (stem, frac)
+                # the kernel on the split run's own ids
+                for n_bins, (ids, inc) in sorted(r.inputs.items()):
+                    got = H.histogram(ids, inc, n_bins)
+                    plain = H.histogram_plain(ids, inc, n_bins)
+                    torch.cuda.synchronize()
+                    assert torch.equal(got, plain), (stem, frac, n_bins)
+                r.inputs = {}
+            rec["launches"][stem] = {
+                "planned" if k is None else str(k): r.launches
+                for k, r in runs.items()}
+            rec["planned"][stem] = planned
+            for frac, r in runs.items():
+                assert same_record(r, runs[1]), \
+                    f"{stem}: frac {frac} changed the count phase's results"
+                assert (r.meme, r.log) == (runs[1].meme, runs[1].log), \
+                    f"{stem}: frac {frac} changed the output"
+            print(f"  {stem}: count table, ltot, background counts, MEME "
+                  f"bytes and stdout identical across the four; the kernel "
+                  f"bit-identical to the plain version on each run's ids",
+                  flush=True)
+            # planner (a) against pure device (b): a, b, b, a, ...
+            walls = {None: [], 1: []}
+            for frac in (None, 1, 1, None) * turns:
+                r = cli(fasta, w, frac, os.path.join(tmp, "hy_wall.meme"))
+                walls[frac].append((r.wall, r.count_s))
+            for frac, ws in walls.items():
+                name = f"planner ({planned:.3f})" if frac is None else "frac 1"
+                job, cnt = [w[0] for w in ws], [w[1] for w in ws]
+                print(f"  {stem} {name}: job wall median {median(job):.4f} s "
+                      f"(range {min(job):.4f}-{max(job):.4f}), count phase "
+                      f"median {median(cnt):.4f} s (range {min(cnt):.4f}-"
+                      f"{max(cnt):.4f}), {len(ws)} runs", flush=True)
+            rec["walls"][stem] = {
+                "planner" if k is None else "frac_1": dict(
+                    job_median_s=median([w[0] for w in ws]),
+                    count_median_s=median([w[1] for w in ws]), runs=len(ws))
+                for k, ws in walls.items()}
+
+    # a default run on each side of the planner's crossover
+    assert rec["planned"]["large_w10"] == 1.0, rec["planned"]
+    assert rec["planned"]["mafk100_w12"] == 0.0, rec["planned"]
+    assert rec["launches"]["large_w10"]["planned"] == 14
+    assert rec["launches"]["mafk100_w12"]["planned"] == 0
+
+    with phase("hybrid: 51.2 Mbases -w 12, the count phase alone"):
+        recs = {}
+        for frac in (1, 0.5, 0, None):
+            r = Recorder()
+            peng = types.SimpleNamespace(
+                sequence_set=sset,
+                bg_model=BackgroundModel(sset.sequences, order=bg_order,
+                                         interpolate=True, defer=True))
+            with device_frac(frac), r.active():
+                zero_launches()
+                out = engine._count_phase(peng, 12, both, dev)
+                r.launches = H.LAUNCHES
+            # the resident table, completed as stats_program completes it
+            state = engine.resident_state(out[2], out[1], out[3], out[4], [],
+                                          dev, host_add=out[5])
+            resident = state.counts.clone()
+            if state.host_add is not None:
+                resident += state.host_add
+            resident.index_add_(0, state.fix_ids, state.fix_dv)
+            assert np.array_equal(resident.cpu().numpy(), r.counts), \
+                f"w12 frac {frac}: the resident table != counts_host"
+            r.inputs = {}
+            recs[frac] = r
+            print(f"  w12 frac {'planned' if frac is None else frac}: "
+                  f"LAST_HYBRID_FRAC {engine.LAST_HYBRID_FRAC:.4f}, count "
+                  f"phase {r.count_s:.3f} s, ltot {r.ltot}, histogram "
+                  f"launches {r.launches}", flush=True)
+            assert same_record(r, recs[1]), f"w12: frac {frac} differs"
+        rec["launches"]["large_w12_count"] = {
+            "planned" if k is None else str(k): r.launches
+            for k, r in recs.items()}
+        print("  w12: count table, ltot and background counts identical "
+              "across the four; the resident table with its addends equals "
+              "the host table", flush=True)
+        # the planner's choice, the pure device count and the host-only
+        # count in turns: the count phase alone, then whole jobs
+        with device_frac(None):
+            planned = hy.plan_device_fraction(n_bases, 12)
+        names = {None: f"planner ({planned:.3f})", 1: "frac 1", 0: "frac 0"}
+        walls = {k: [] for k in names}
+        for frac in (None, 1, 0, 0, 1, None) * 2 + (None, 1, 0):
+            walls[frac].append(count_phase_wall(sset, 12, frac))
+        jobs, meme = {1: [], 0: []}, None
+        for frac in (1, 0, 0, 1):
+            r = cli(large_fasta, "12", frac, os.path.join(tmp, "hy_w12.meme"))
+            jobs[frac].append(r.wall)
+            meme = meme or r.meme
+            assert r.meme == meme, "w12: the host-only job's MEME differs"
+        for frac, name in names.items():
+            ws = walls[frac]
+            print(f"  w12 {name}: count phase median {median(ws):.4f} s "
+                  f"(range {min(ws):.4f}-{max(ws):.4f}), {len(ws)} runs"
+                  + (f"; job walls {jobs[frac]}" if frac in jobs else ""),
+                  flush=True)
+        rec["walls"]["large_w12"] = {
+            "planner" if k is None else f"frac_{k}": dict(
+                count_median_s=median(walls[k]), runs=len(walls[k]),
+                job_walls_s=jobs.get(k)) for k in names}
+    return rec
+
+
+def json_close(a, b, tol_abs=TOL_ABS, tol_rel=TOL_REL) -> bool:
+    """Two parsed JSON documents: the same structure, strings and
+    integers equal, floats within tol_abs + tol_rel * |b| (nan == nan)."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        return a.keys() == b.keys() and all(
+            json_close(a[k], b[k], tol_abs, tol_rel) for k in a)
+    if isinstance(a, list) and isinstance(b, list):
+        return len(a) == len(b) and all(
+            json_close(x, y, tol_abs, tol_rel) for x, y in zip(a, b))
+    if isinstance(a, float) and isinstance(b, float):
+        return (a == b or (a != a and b != b)
+                or abs(a - b) <= tol_abs + tol_rel * abs(b))
+    return type(a) is type(b) and a == b
+
+
+def run_shoot_phase(tmp):
+    """Phase 13 (see the module docstring)."""
+    with phase("shoot: python -m peng_motif_tpu_torch.shoot"):
+        fasta = os.path.join(GOLDEN, "MafK_100seqs.fasta")
+        procs, t0 = {}, time.perf_counter()
+        for where, extra in (("cuda", ["--device", "cuda"]),
+                             ("cpu", ["--device", "cpu", "--engine", "tpu"])):
+            procs[where] = subprocess.Popen(
+                [sys.executable, "-m", "peng_motif_tpu_torch.shoot", fasta,
+                 "-w", "8", "--no-scoring", "--silent", "-o",
+                 os.path.join(tmp, f"shoot_{where}.meme"), "-j",
+                 os.path.join(tmp, f"shoot_{where}.json")] + extra,
+                cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)
+        try:
+            for where, p in procs.items():
+                _, err = p.communicate(timeout=300)
+                assert p.returncode == 0, \
+                    f"shoot on {where} exited {p.returncode}:\n{err[-3000:]}"
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall = time.perf_counter() - t0
+        memes = {w: read_bytes(os.path.join(tmp, f"shoot_{w}.meme")).decode()
+                 for w in procs}
+        docs = {}
+        for w in procs:
+            with open(os.path.join(tmp, f"shoot_{w}.json")) as f:
+                docs[w] = json.load(f)
+        assert "zoops_score= nan occur= nan" in memes["cuda"]
+        assert docs["cuda"]["patterns"], "shoot wrote no pattern"
+        ok_meme = within_tolerance(memes["cuda"], memes["cpu"])
+        ok_json = json_close(docs["cuda"], docs["cpu"])
+        print(f"  MafK_100seqs -w 8 --no-scoring: both exit 0 in {wall:.3f} "
+              f"s (side by side), {len(docs['cuda']['patterns'])} patterns; "
+              f"--device cuda against --device cpu: MEME within tolerance "
+              f"{ok_meme} (byte-identical {memes['cuda'] == memes['cpu']}), "
+              f"JSON within tolerance {ok_json}", flush=True)
+        assert ok_meme and ok_json, "shoot: card and cpu outputs differ"
+
+
 def main() -> int:
     import torch
 
@@ -1159,6 +1821,12 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this run "
               "needs a CUDA device", file=sys.stderr)
         return 2
+
+    t_start = time.perf_counter()
+    # the phases measure the kernel at full width on the whole corpus:
+    # the co-count is pinned to the pure device count for them (and for
+    # the processes they start); phase 12 owns the planner
+    os.environ["PENG_HYBRID_DEVICE_FRAC"] = "1"
 
     import numpy as np
 
@@ -1418,7 +2086,14 @@ def main() -> int:
     mesh = run_mesh_phase(big.name, fasta, dev, n_bases)
     max_err = max(max_err, mesh.pop("max_abs_err"))
     procs = run_process_phase(big.name, fasta, dev, scale_rec)
+    run_parity_phase(big.name)
+    entry = run_entry_phase(dev)
+    max_err = max(max_err, entry["entry"]["max_abs_err"])
+    hybrid = run_hybrid_phase(big.name, fasta, dev, n_bases)
+    run_shoot_phase(big.name)
     big.cleanup()
+    print(f"all phases done in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
 
     # launches / ms / plain_ms / library_ms / bound_ms: the device engine's
     # main path (51.2 Mbases -w 10, the first slab's 4**10 table; bound
@@ -1431,7 +2106,13 @@ def main() -> int:
     # --devices 1 main path, each counted from 0; the kernel on one
     # shard's inputs); processes: each rank's own report of the 2-process
     # jobs (rows counted, launches, transport), the kernel on one rank's
-    # block, and the transport and launches of the world of one
+    # block, and the transport and launches of the world of one;
+    # entry_launches / entry: graft_entry.entry()'s one launch (counted
+    # from 0) and the kernel on its input; hybrid: the co-count's measured
+    # rates per width, the count phase's walls at either end by corpus
+    # size with the cost model fitted to them, the fraction the planner's
+    # defaults give, the device share's launches per forced fraction, and
+    # the walls of the planner's choice against the pure device count
     print(json.dumps({"kernels": [{
         "name": "histogram", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,
@@ -1443,7 +2124,9 @@ def main() -> int:
         "exact_plain_ms": exact["plain_ms"],
         "exact_bound_ms": exact["bound_ms"],
         "exact_library_ms": exact["library_ms"],
-        "mesh": mesh, "processes": procs}]}), flush=True)
+        "mesh": mesh, "processes": procs,
+        "entry_launches": entry["entry_launches"], "entry": entry["entry"],
+        "hybrid": hybrid}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

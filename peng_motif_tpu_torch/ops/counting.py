@@ -22,8 +22,8 @@ The batch count runs on a [B, L] code batch in one device program whose
 tensor the kernel's plain version runs.  Two parts of the reference's
 form are left out: the uint16 wire of the canonical slice, with its
 int32 refetch (``_count_device_packed_i32``), because the slice is
-fetched as int32; and ``count_patterns_device``, ``count_device_full``
-and ``fixup_delta_pairs``, which nothing in the reference package calls.
+fetched as int32; and ``count_device_full`` and ``fixup_delta_pairs``,
+which nothing in the reference package calls.
 """
 
 from __future__ import annotations
@@ -151,6 +151,18 @@ def _count_device(codes: torch.Tensor, length: int, both_strands: bool):
         counts = torch.where(encoding.canonical_mask_flat(length, dev), counts,
                              counts[encoding.rc_ids_flat(length, dev)])
     return counts, ltot, suspicious
+
+
+def count_patterns_device(codes: torch.Tensor, length: int,
+                          both_strands: bool = True):
+    """Counting that never leaves the codes' device (naive dedup only, no
+    host fix-up): exact whenever no row carries a same-pattern occurrence
+    chain with gaps < W.  Returns (counts [4**W] int32 mirrored, ltot as a
+    0-d int64 tensor): nothing here waits for the device, so a caller's
+    whole function stays on it.  One histogram launch.  Use
+    :func:`count_patterns` for the guaranteed-exact result."""
+    counts, ltot, _ = _count_device(codes, length, both_strands)
+    return counts, ltot
 
 
 def _count_device_packed(buf: torch.Tensor, seq_len: int, length: int,

@@ -150,6 +150,7 @@ class Peng:
         exact engine, its stdout discarded."""
         engine_mod.LAST_ENGINE_USED = None
         engine_mod.LAST_CLIMB_ENGINE = engine_mod.LAST_PWM_ENGINE = None
+        engine_mod.LAST_HYBRID_FRAC = None
         engine = resolve_engine(params.engine, params.device,
                                 params.max_pattern_length)
         if engine == "tpu":

@@ -1,6 +1,9 @@
 """The port's device engine (``--device cpu --engine tpu``) against the
 reference package's device engine (``--engine tpu``, on the CPU) on every golden case of
-tests/test_e2e_parity.py, from the same run.
+tests/test_e2e_parity.py, from the same run, and on the two cases of the
+reference's hardware parity list (tests_hw/test_hw_parity.py) that the
+golden cases lack: MafK -w 10 and MafK_100seqs -w 12 (a 4**12 table:
+about a minute on the CPU for the two engines together).
 
 Tolerance: the ENGINE_CASES contract of tests/test_engine_tpu.py —
 structure and decisions identical, floats within 5e-6 absolute + 1e-6
@@ -28,6 +31,11 @@ from peng_motif_tpu_torch.cli import main
 
 EITHER_REFERENCE = {"synth_w8_emiter3"}
 
+ALL_CASES = CASES + [
+    ("mafk_w10", ["MafK.fasta", "-w", "10"], False),
+    ("mafk100_w12", ["MafK_100seqs.fasta", "-w", "12"], False),
+]
+
 
 def _within_tol(got, want, stem, tol):
     try:
@@ -37,8 +45,8 @@ def _within_tol(got, want, stem, tol):
     return True
 
 
-@pytest.mark.parametrize("stem,args,check_json", CASES,
-                         ids=[c[0] for c in CASES])
+@pytest.mark.parametrize("stem,args,check_json", ALL_CASES,
+                         ids=[c[0] for c in ALL_CASES])
 def test_port_matches_reference_engine(stem, args, check_json, tmp_path,
                                        capsys):
     outs = {}
