@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port (peng_motif_tpu_torch) on one CUDA
-card.
+"""Smoke run of the PyTorch/CUDA port (peng_motif_tpu_torch) on the CUDA
+cards of one machine: phases 1-13 on card 0, phase 14 over every card.
 
     python3 chip_smoke.py
 
 Phases, each of which asserts (any failure exits non-zero; nothing is
 caught):
 
-  1. device  — the card's name and power limit (nvidia-smi) and torch's
-               device name;
+  1. device  — each card's name and power limit (nvidia-smi), torch's
+               device name and count, and with two cards or more the
+               links between them (nvidia-smi topo -m and nvlink
+               --status where the machine answers them, and torch's
+               peer-access matrix);
   2. build   — the histogram kernel (nvcc, sm_90a) and the native host
                library (g++), from the sources in this checkout;
   3. kernel  — the histogram kernels against their plain PyTorch version
@@ -80,8 +83,9 @@ caught):
                card): output identical to the run without --devices;
                --devices with one card more than the machine has must
                exit with an error;
-  9. procs   — two processes that share the card
-               (python -m peng_motif_tpu_torch ... --num-processes 2, gloo
+  9. procs   — two processes that share card 0 (each started with
+               CUDA_VISIBLE_DEVICES naming that card alone;
+               python -m peng_motif_tpu_torch ... --num-processes 2, gloo
                expected) on MafK -w 10 and the 51.2-Mbase corpus:
                process 0's MEME equal to the single-process run's, and
                every rank's own report of the chunk rows it counted and
@@ -90,9 +94,9 @@ caught):
                tile the chunk axis); the kernel held against the plain
                version and timed on one rank's block of the 51.2-Mbase
                corpus, rebuilt in this process; then
-               NCCL at world size 1, in this process (init_multihost +
-               multihost_stream_counts + multihost_bg_counts on the
-               51.2-Mbase corpus): LAST_BACKEND == "nccl", table, ltot
+               NCCL at world size 1 on card 0, in this process
+               (init_multihost + multihost_stream_counts +
+               multihost_bg_counts on the 51.2-Mbase corpus): LAST_BACKEND == "nccl", table, ltot
                and background counts equal to the single-device run's;
  10. parity  — the cases of the reference's hardware parity list that
                phase 4 lacks (MafK_100seqs -w 8 with --strand PLUS, with
@@ -140,7 +144,30 @@ caught):
                device count and the host-only count in turns;
  13. shoot   — python -m peng_motif_tpu_torch.shoot on MafK_100seqs -w 8
                --no-scoring, on the card and on the CPU: both exit 0, MEME
-               and JSON within the engine tolerance of each other.
+               and JSON within the engine tolerance of each other;
+ 14. cards   — the multi-card paths, with two cards or more (meshes of
+               2 and of min(cards, 4)); on one card each of its five
+               parts prints "not run: 1 card" and the script goes on.
+               The sharded stream count over cuda:0… (MafK -w 6, -w 8,
+               51.2 Mbases -w 10, -w 12) bit-identical to the mesh of one,
+               every card launching, and the kernel held against the plain
+               version and timed on the first input of each table size
+               that each card counted; count_patterns_sharded,
+               count_device_full_sharded and count_bg_kmers_sharded over
+               the cards against the host scans and the mesh of one; the
+               CLI with --devices (device engine on MafK -w 8, -w 10,
+               MafK_100seqs -w 12, 51.2 Mbases -w 10, -w 12: MEME and JSON
+               bytes and stdout identical to the run without --devices, no
+               launch or allocation on cuda:1… after the count; the exact
+               engine with its count on the cards byte-identical to
+               golden); multi-process jobs over NCCL on the 51.2-Mbase
+               corpus at -w 10, one card a process (four processes) and
+               two cards a process (two), each process given its own cards
+               by CUDA_VISIBLE_DEVICES (parallel/multihost.card_sets):
+               every rank reports backend nccl, the blocks tile the chunk
+               axis, process 0's MEME and JSON bytes and stdout equal the
+               single-process run's;
+               dryrun_multichip over the cards.
 
 Every phase but 12 runs with PENG_HYBRID_DEVICE_FRAC=1 (the whole corpus
 on the card).  The last two lines are the kernels' JSON record and the run's
@@ -153,6 +180,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -271,15 +299,16 @@ def time_pair(ids, inc, n_bins, reps=10, library=False):
     return ms["kernel"], ms["plain"], same, err, lib_ms
 
 
-def write_large_corpus(path):
+def write_large_corpus(path, n_seq=25_000):
     """The reference bench's 51.2-Mbase corpus (bench.py _gen_large):
     25,000 x 2,048 bp, seed 7, ~30% of sequences carrying one planted
-    TGA[C/G]TCAC."""
+    TGA[C/G]TCAC; with ``n_seq`` rows, the same generator's corpus of
+    that many."""
     import numpy as np
 
     rng = np.random.default_rng(7)
     let = np.frombuffer(b"ACGT", dtype=np.uint8)
-    n_seq, L = 25_000, 2_048
+    L = 2_048
     rows = let[rng.integers(0, 4, size=(n_seq, L))]
     sel = rng.random(n_seq) < 0.3
     mot_c = np.frombuffer(b"TGACTCAC", dtype=np.uint8)
@@ -1032,12 +1061,88 @@ def run_mesh_phase(tmp, large_fasta, dev, n_bases):
     return rec
 
 
-def run_process_phase(tmp, large_fasta, dev, scale_rec):
-    """Phase 9 (see the module docstring): two processes on the one
-    card, then NCCL at world size 1 against ``scale_rec``, the recorded
-    single-device count of the 51.2-Mbase corpus."""
-    import re
+RANK_REPORT = re.compile(
+    r"rank (\d+) of (\d+) counted chunk rows \[(\d+), (\d+)\) on (\d+) x "
+    r"(\w+), histogram launches (\d+) \(shared (\d+), l2 (\d+)\), "
+    r"backend (\w+)")
 
+
+def rank_reports(errs):
+    """Each rank's own account of its count, from its stderr."""
+    out = []
+    for pid, err in enumerate(errs):
+        m = RANK_REPORT.search(err)
+        assert m, f"process {pid} did not report its count:\n{err[-3000:]}"
+        rank, world, lo, hi, n_dev, kind, n, shared, l2 = (
+            int(g) if g.isdigit() else g for g in m.groups()[:9])
+        assert rank == pid and world == len(errs), (rank, world, len(errs))
+        out.append(dict(rank=rank, rows=[lo, hi], devices=n_dev,
+                        device=kind, launches=n,
+                        tier_launches={"shared": shared, "l2": l2},
+                        backend=m.group(10)))
+    return out
+
+
+def seeing(cards):
+    """The environment of a child process that sees only ``cards``, a
+    comma-separated list of this process's card indices: its
+    ``CUDA_VISIBLE_DEVICES``, in this process's own terms where that is
+    set already."""
+    parent = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if parent:
+        names = parent.split(",")
+        cards = ",".join(names[int(c)] for c in cards.split(","))
+    return dict(os.environ, CUDA_VISIBLE_DEVICES=cards)
+
+
+def process_job(tmp, fasta, w, stem, cards, devices=None):
+    """One multi-process job of the CLI (device engine), process ``p``
+    seeing the cards ``cards[p]`` (CUDA_VISIBLE_DEVICES) and, with
+    ``devices``, counting over a local mesh of that many.  Returns (wall
+    from the first start to the last exit, process 0's MEME bytes, every
+    process's stderr, process 0's JSON bytes and stdout); a worker that
+    prints to stdout fails it."""
+    out0 = os.path.join(tmp, f"{stem}_p0.meme")
+    json0 = os.path.join(tmp, f"{stem}_p0.json")
+    port = free_port()
+    n = len(cards)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "peng_motif_tpu_torch", fasta, "-w", w,
+         "--device", "cuda", "--engine", "tpu", "--timing",
+         "--num-processes", str(n), "--process-id", str(pid),
+         "--coordinator", f"localhost:{port}"]
+        + (["--devices", str(devices)] if devices else [])
+        + (["-o", out0, "-j", json0] if pid == 0 else []),
+        cwd=REPO, env=seeing(cards[pid]), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for pid in range(n)]
+    results = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            results.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    for pid, (rc, out, err) in enumerate(results):
+        assert rc == 0, f"process {pid} exited {rc}:\n{err[-3000:]}"
+        assert pid == 0 or out == "", f"worker {pid} printed to stdout"
+    return (wall, read_bytes(out0), [r[2] for r in results],
+            read_bytes(json0), results[0][1])
+
+
+def timing_of(err):
+    return ", ".join(ln[len("[TIMING] "):] for ln in err.splitlines()
+                     if ln.startswith("[TIMING] "))
+
+
+def run_process_phase(tmp, large_fasta, dev, scale_rec):
+    """Phase 9 (see the module docstring): two processes on one card,
+    then NCCL at world size 1 against ``scale_rec``, the recorded
+    single-device count of the 51.2-Mbase corpus."""
     import numpy as np
 
     from peng_motif_tpu_torch.bench_histogram import bound_ms
@@ -1047,76 +1152,26 @@ def run_process_phase(tmp, large_fasta, dev, scale_rec):
     from peng_motif_tpu_torch.ops import stream_count
     from peng_motif_tpu_torch.parallel import multihost, sharded
 
-    report = re.compile(
-        r"rank (\d+) of 2 counted chunk rows \[(\d+), (\d+)\) on (\d+) x "
-        r"(\w+), histogram launches (\d+) \(shared (\d+), l2 (\d+)\), "
-        r"backend (\w+)")
-
-    def rank_reports(errs):
-        """Each rank's own account of its count, from its stderr."""
-        out = []
-        for pid, err in enumerate(errs):
-            m = report.search(err)
-            assert m, f"process {pid} did not report its count:\n{err[-3000:]}"
-            rank, lo, hi, n_dev, kind, n, shared, l2 = (
-                int(g) if g.isdigit() else g for g in m.groups()[:8])
-            assert rank == pid
-            out.append(dict(rank=rank, rows=[lo, hi], devices=n_dev,
-                            device=kind, launches=n,
-                            tier_launches={"shared": shared, "l2": l2},
-                            backend=m.group(9)))
-        return out
-
-    def job(fasta, w, stem):
-        """(wall, MEME bytes, the stderr of process 0 and of process 1) of
-        the 2-process job."""
-        out0 = os.path.join(tmp, f"{stem}_p0.meme")
-        port = free_port()
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, "-m", "peng_motif_tpu_torch", fasta, "-w", w,
-             "--device", "cuda", "--engine", "tpu", "--timing",
-             "--num-processes", "2", "--process-id", str(pid),
-             "--coordinator", f"localhost:{port}"]
-            + (["-o", out0] if pid == 0 else []),
-            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True) for pid in (0, 1)]
-        results = []
-        try:
-            for p in procs:
-                out, err = p.communicate(timeout=300)
-                results.append((p.returncode, out, err))
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.communicate()
-        wall = time.perf_counter() - t0
-        for pid, (rc, out, err) in enumerate(results):
-            assert rc == 0, f"process {pid} exited {rc}:\n{err[-3000:]}"
-        assert results[1][1] == "", "a worker process printed to stdout"
-        return wall, read_bytes(out0), [r[2] for r in results]
-
     def single(fasta, w, stem):
         out = os.path.join(tmp, f"{stem}_single.meme")
         t0 = time.perf_counter()
         p = subprocess.run(
             [sys.executable, "-m", "peng_motif_tpu_torch", fasta, "-w", w,
              "--device", "cuda", "--engine", "tpu", "--timing", "-o", out],
-            cwd=REPO, capture_output=True, text=True, timeout=300)
+            cwd=REPO, env=seeing("0"), capture_output=True, text=True,
+            timeout=300)
         assert p.returncode == 0, p.stderr[-3000:]
         return time.perf_counter() - t0, read_bytes(out), p.stderr
-
-    def timing_of(err):
-        return ", ".join(ln[len("[TIMING] "):] for ln in err.splitlines()
-                         if ln.startswith("[TIMING] "))
 
     ranks = {}
     with phase("two processes, one card"):
         for fasta, w, stem in (
                 (os.path.join(GOLDEN, "MafK.fasta"), "10", "mafk_w10"),
                 (large_fasta, "10", "large_w10")):
-            wall2, meme2, errs = job(fasta, w, stem)
+            # both processes see card 0 alone, whatever the machine has:
+            # two ranks sharing one card
+            wall2, meme2, errs, _, _ = process_job(tmp, fasta, w, stem,
+                                                   ["0", "0"])
             wall1, meme1, err1 = single(fasta, w, stem)
             ranks[stem] = reps = rank_reports(errs)
             print(f"  {stem}: 2-process job wall {wall2:.3f} s (process "
@@ -1130,7 +1185,8 @@ def run_process_phase(tmp, large_fasta, dev, scale_rec):
                       f"{r['launches']} {r['tier_launches']}, backend "
                       f"{r['backend']}", flush=True)
                 # the 4**10 table alone (no fused background): the L2 tier
-                assert r["device"] == "cuda" and r["launches"] > 0, r
+                assert r["device"] == "cuda" and r["devices"] == 1, r
+                assert r["launches"] > 0, r
                 assert r["tier_launches"] == {"shared": 0,
                                               "l2": r["launches"]}, r
                 # the two ranks share the card, and NCCL refuses that
@@ -1179,8 +1235,11 @@ def run_process_phase(tmp, large_fasta, dev, scale_rec):
     with phase("NCCL at world size 1"):
         before = H.LAUNCHES
         t0 = time.perf_counter()
+        # one card, however many the machine has: a world of one rank
+        # that owns its card
         ctx = multihost.init_multihost(f"localhost:{free_port()}", 1, 0,
-                                       timeout_s=120, device=dev)
+                                       timeout_s=120, device=dev,
+                                       mesh=(dev,))
         t1 = time.perf_counter()
         try:
             assert multihost.LAST_BACKEND == ctx.backend == "nccl", ctx
@@ -1214,6 +1273,7 @@ def zero_launches():
 
     H.LAUNCHES = 0
     H.TIER_LAUNCHES.update(shared=0, l2=0)
+    H.DEVICE_LAUNCHES.clear()
 
 
 def write_wide_corpus(path):
@@ -1814,6 +1874,282 @@ def run_shoot_phase(tmp):
         assert ok_meme and ok_json, "shoot: card and cpu outputs differ"
 
 
+class CardWatch:
+    """From the end of the count phase to the end of the run, the
+    histogram launches and the peak of allocated memory on each of
+    ``cards``: the proof that nothing after the count touches them."""
+
+    def __init__(self, cards):
+        self.cards = list(cards)
+
+    @contextlib.contextmanager
+    def active(self):
+        import torch
+
+        from peng_motif_tpu_torch import engine
+        from peng_motif_tpu_torch.ops import histogram as H
+
+        real = engine._count_phase
+        base = {}
+
+        def count_phase(*a, **k):
+            out = real(*a, **k)
+            for c in self.cards:
+                torch.cuda.synchronize(c)
+                torch.cuda.reset_peak_memory_stats(c)
+                base[c] = (torch.cuda.memory_allocated(c),
+                           H.DEVICE_LAUNCHES.get(c, 0))
+            return out
+
+        engine._count_phase = count_phase
+        try:
+            yield
+        finally:
+            engine._count_phase = real
+        for c in self.cards:
+            assert c in base, "the run had no count phase"
+            peak = torch.cuda.max_memory_allocated(c)
+            assert peak <= base[c][0], \
+                f"cuda:{c}: {peak - base[c][0]} B allocated after the count"
+            assert H.DEVICE_LAUNCHES.get(c, 0) == base[c][1], \
+                f"cuda:{c}: a kernel launched after the count"
+
+
+def run_cards_phase(tmp, large_fasta, dev):
+    """Phase 14 (see the module docstring).  Returns the ``cards`` object
+    of the kernels line, or None on a machine with one card."""
+    import numpy as np
+    import torch
+
+    from peng_motif_tpu_torch import engine
+    from peng_motif_tpu_torch.bench_histogram import bound_ms
+    from peng_motif_tpu_torch.io.fasta import load_sequence_set
+    from peng_motif_tpu_torch.models.background import count_kmers
+    from peng_motif_tpu_torch.ops import counting
+    from peng_motif_tpu_torch.ops import histogram as H
+    from peng_motif_tpu_torch.parallel import multihost, sharded
+    from peng_motif_tpu_torch.parallel.dryrun import dryrun_multichip
+    from peng_motif_tpu_torch.parallel.mesh import make_data_mesh
+
+    names = ("cards: the kernel on every card, the sharded stream count",
+             "cards: the sharded batch and background counts",
+             "cards: the CLI with --devices",
+             "cards: processes over NCCL, one card or two each",
+             "cards: dryrun_multichip")
+    n = torch.cuda.device_count()
+    if n < 2:
+        for name in names:
+            print(f"[phase] {name}: not run: {n} card", flush=True)
+        return None
+    sizes = [2] + ([min(n, 4)] if n > 2 else [])
+    big = sizes[-1]
+    mafk = os.path.join(GOLDEN, "MafK.fasta")
+    mafk100 = os.path.join(GOLDEN, "MafK_100seqs.fasta")
+    rec = {"cards": n, "meshes": sizes, "max_abs_err": 0, "per_card": {},
+           "stream_launches": {}}
+
+    def every_card(launches, m, each=None):
+        """The launches by card of a run over ``m`` cards: each card
+        launched (``each`` times, when given)."""
+        assert sorted(launches) == list(range(m)), launches
+        assert each is None or set(launches.values()) == {each}, launches
+
+    with phase(names[0]):
+        inputs = {}     # (card, n_bins): the first input each card counted
+        for fasta, W in ((mafk, 6), (mafk, 8), (large_fasta, 10),
+                         (large_fasta, 12)):
+            ss = load_sequence_set(fasta)
+            bg_order = 2 if W >= 8 else -1
+            outs = {}
+            for m in [1] + (sizes if W == 10 else [big]):
+                mesh = (dev,) if m == 1 else make_data_mesh(m, "cuda")
+
+                def hist(real, ids, inc, n_bins, out, keep=m == big):
+                    key = (ids.device.index, n_bins)
+                    if keep and key not in inputs:
+                        inputs[key] = (ids.clone(), inc.clone())
+                    return real(ids, inc, n_bins, out=out)
+
+                zero_launches()
+                t0 = time.perf_counter()
+                with stream_histogram(hist):
+                    _stream, lay, out = sharded.stream_count_sharded(
+                        ss.sequences, W, True, mesh,
+                        flat_codes=ss._flat_codes, bg_order=bg_order,
+                        n_undefined=ss.n_undefined)
+                for d in set(mesh):
+                    torch.cuda.synchronize(d)
+                wall = time.perf_counter() - t0
+                launches = dict(H.DEVICE_LAUNCHES)
+                every_card(launches, m)
+                assert all(t.device == mesh[0] for t in out
+                           if t is not None), "a result off the first card"
+                outs[m] = (lay, [t.cpu() for t in out if t is not None])
+                rec["stream_launches"][f"w{W}_mesh{m}"] = launches
+                print(f"  w{W} {os.path.basename(fasta)} over {m} card(s): "
+                      f"m_pad {lay.m_pad}, launches by card {launches}, "
+                      f"count wall {wall:.4f} s", flush=True)
+            lay1, want = outs[1]
+            for m, (lay, got) in outs.items():
+                assert lay.m == lay1.m and len(got) == len(want)
+                for name, a, b in zip(("counts", "vals", "ltot", "susp",
+                                       "bg"), got, want):
+                    if name == "susp":
+                        assert not a[lay1.m_pad:].any(), (W, m)
+                        a = a[: lay1.m_pad]
+                    assert torch.equal(a, b), f"w{W} mesh {m}: {name} differs"
+            print(f"  w{W}: count table, canonical slice, ltot, suspicion"
+                  + (" and background counts" if bg_order >= 0 else "")
+                  + f" over {sorted(outs)} card(s) bit-identical", flush=True)
+            del ss, outs
+        for (card, n_bins), (ids, inc) in sorted(inputs.items()):
+            with torch.cuda.device(card):
+                k_ms, p_ms, same, err, lib_ms = time_pair(ids, inc, n_bins,
+                                                          library=True)
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            b_ms = bound_ms(ids.numel(), n_bins)
+            print(f"  cuda:{card} input n_bins={n_bins} n={ids.numel()} "
+                  f"counted={int(inc.sum())}: kernel {k_ms:.4f} ms "
+                  f"({100 * b_ms / k_ms:.1f}% of the {b_ms:.4f} ms bound), "
+                  f"plain {p_ms:.4f} ms, library {lib_ms:.4f} ms, "
+                  f"bit-identical {same}", flush=True)
+            assert same, f"kernel != plain on cuda:{card} at {n_bins} bins"
+            rec["per_card"].setdefault(str(card), {})[str(n_bins)] = dict(
+                n=ids.numel(), ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                bound_ms=b_ms)
+        assert len({c for c, _ in inputs}) == big
+        del inputs
+
+    with phase(names[1]):
+        ss = load_sequence_set(mafk)
+        codes = ss.padded()
+        b = codes.shape[0]
+        host = counting.CountJob(codes, 8, True, "cpu").finish()
+        one = sharded.count_device_full_sharded(codes, 8, True, (dev,))
+        lengths = np.array([len(s) for s in ss.sequences], dtype=np.int32)
+        want_bg = count_kmers(ss.sequences, 2)
+        for m in sizes:
+            mesh = make_data_mesh(m, "cuda")
+            zero_launches()
+            got, got_ltot = sharded.count_patterns_sharded(codes, 8, True,
+                                                           mesh)
+            every_card(dict(H.DEVICE_LAUNCHES), m, each=1)
+            assert np.array_equal(got, host[0]) and got_ltot == host[1]
+            full = sharded.count_device_full_sharded(codes, 8, True, mesh)
+            for name, a, w in zip(("counts", "vals", "ltot", "susp"),
+                                  full[:4], one[:4]):
+                assert a.device == mesh[0], name
+                a = a.cpu()
+                if name == "susp":
+                    assert not a[b:].any()
+                    a = a[:b]
+                assert torch.equal(a, w.cpu()), f"mesh {m}: {name} differs"
+            zero_launches()
+            bg = sharded.count_bg_kmers_sharded(codes, 2, mesh,
+                                                lengths=lengths)
+            every_card(dict(H.DEVICE_LAUNCHES), m, each=3)
+            for g, w in zip(bg, want_bg):
+                assert np.array_equal(g, w), f"mesh {m}: background differs"
+            print(f"  MafK -w 8 over {m} cards: count_patterns_sharded == "
+                  f"host scan (one launch a card), count_device_full_sharded "
+                  f"== the mesh of one (resident on cuda:0), "
+                  f"count_bg_kmers_sharded == native count_kmers (three "
+                  f"launches a card)", flush=True)
+
+    memes = {}
+    with phase(names[2]):
+        for fasta, w, stem in ((mafk, "8", "mafk_w8"),
+                               (mafk, "10", "mafk_w10"),
+                               (mafk100, "12", "mafk100_w12"),
+                               (large_fasta, "10", "large_w10"),
+                               (large_fasta, "12", "large_w12")):
+            runs = {}
+            for m in [None] + sizes:
+                log = io.StringIO()
+                out = os.path.join(tmp, f"cards_{stem}_{m}.meme")
+                js = os.path.join(tmp, f"cards_{stem}_{m}.json")
+                watch = CardWatch(range(1, m or 1))
+                zero_launches()
+                with watch.active():
+                    wall, timing = run_cli(
+                        [fasta, "-w", w, "--device", "cuda", "--engine",
+                         "tpu", "--timing", "-o", out, "-j", js]
+                        + (["--devices", str(m)] if m else []), log)
+                launches = dict(H.DEVICE_LAUNCHES)
+                assert engine.LAST_ENGINE_USED == "gpu"
+                runs[m] = (read_bytes(out), read_bytes(js), log.getvalue())
+                if m:
+                    every_card(launches, m)
+                if stem == "large_w10" and m == big:
+                    rec["cli_launches"] = launches   # the main path's run
+                print(f"  {stem} --devices {m or '(none)'}: wall {wall:.3f} "
+                      f"s, count {timing.get('count', 0):.1f} ms, launches "
+                      f"by card {launches}", flush=True)
+            for m in sizes:
+                assert runs[m] == runs[None], \
+                    f"{stem} --devices {m}: MEME, JSON or stdout differs"
+            memes[stem] = runs[None]
+            print(f"  {stem}: MEME and JSON bytes and stdout of --devices "
+                  f"{sizes} identical to the run without --devices; nothing "
+                  f"after the count touched cuda:1-{big - 1}", flush=True)
+        golden = read_bytes(os.path.join(GOLDEN, "mafk_w8.meme"))
+        with count_on("device"):
+            for m in sizes:
+                out = os.path.join(tmp, f"cards_exact_{m}.meme")
+                zero_launches()
+                run_cli([mafk, "-w", "8", "--device", "cuda", "--engine",
+                         "exact", "--devices", str(m), "-o", out])
+                assert engine.LAST_ENGINE_USED == "exact"
+                # the batch count and the three background tables
+                every_card(dict(H.DEVICE_LAUNCHES), m, each=4)
+                assert read_bytes(out) == golden, \
+                    f"exact --devices {m}: not the golden bytes"
+        print(f"  MafK -w 8 --engine exact, count on the cards, --devices "
+              f"{sizes}: byte-identical to golden, four launches a card",
+              flush=True)
+
+    with phase(names[3]):
+        rec["processes"] = {}
+        jobs = [(min(n, 4), 1)] + ([(2, 2)] if n >= 4 else [])
+        for procs, per in jobs:
+            sets = multihost.card_sets(procs * per, procs)
+            stem = f"nccl_{procs}x{per}"
+            wall, meme, errs, js, out = process_job(
+                tmp, large_fasta, "10", stem, sets,
+                devices=per if per > 1 else None)
+            reps = rank_reports(errs)
+            same = (meme, js, out) == memes["large_w10"]
+            print(f"  {procs} processes x {per} card(s) ({sets}), 51.2 "
+                  f"Mbases -w 10: job wall {wall:.3f} s (--timing of "
+                  f"process 0: {timing_of(errs[0])}); MEME and JSON bytes "
+                  f"and stdout identical to the single-process run {same}",
+                  flush=True)
+            for r in reps:
+                print(f"    rank {r['rank']}: chunk rows {r['rows']} on "
+                      f"{r['devices']} x {r['device']}, launches "
+                      f"{r['launches']} {r['tier_launches']}, backend "
+                      f"{r['backend']}", flush=True)
+                assert r["backend"] == "nccl", r
+                assert r["device"] == "cuda" and r["devices"] == per, r
+                assert r["launches"] > 0, r
+            assert reps[0]["rows"][0] == 0
+            assert all(a["rows"][1] == b["rows"][0]
+                       for a, b in zip(reps, reps[1:]))
+            assert same, f"{stem}: MEME, JSON or stdout differs"
+            rec["processes"][stem] = dict(wall_s=wall, ranks=reps)
+
+    with phase(names[4]):
+        for m in sizes:
+            zero_launches()
+            with contextlib.redirect_stdout(io.StringIO()):
+                dryrun_multichip(m, "cuda")
+            every_card(dict(H.DEVICE_LAUNCHES), m)
+            print(f"  dryrun_multichip({m}, cuda): MEME bytes and stdout "
+                  f"over cuda:0-{m - 1} identical to the one-card run",
+                  flush=True)
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -1848,12 +2184,17 @@ def main() -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"],
             capture_output=True, text=True, check=True, timeout=60)
-        card = smi.stdout.strip().splitlines()[0]
-        print(card, flush=True)  # name, power limit: as nvidia-smi gives them
+        # name, power limit: as nvidia-smi gives them, one line a card
+        for card in smi.stdout.strip().splitlines():
+            print(card, flush=True)
         dev = resolve_device("cuda")
         kind = torch.cuda.get_device_name(0)
         print(f"torch: {torch.__version__} cuda {torch.version.cuda} "
               f"device {kind} count {torch.cuda.device_count()}", flush=True)
+        if torch.cuda.device_count() > 1:
+            from peng_motif_tpu_torch.bench_histogram import links
+
+            print(links(), flush=True)
 
     with phase("build"):
         t0 = time.perf_counter()
@@ -1978,14 +2319,14 @@ def main() -> int:
             crec = ChainRecorder()
             with rec.active(), crec.active():
                 if launches is None:
-                    H.LAUNCHES = 0  # the main-path run starts here
-                    H.TIER_LAUNCHES.update(shared=0, l2=0)
+                    zero_launches()  # the main-path run starts here
                 wall, timing = run_cli([fasta, "-w", "10", "--device",
                                         "cuda", "--engine", "tpu", "--timing",
                                         "-o", out])
                 if launches is None:
                     launches = H.LAUNCHES
                     tier_launches = dict(H.TIER_LAUNCHES)
+                    card_launches = dict(H.DEVICE_LAUNCHES)
                     chain_inputs["large_w10"] = crec.inputs()
             assert engine.LAST_CLIMB_ENGINE == "device"
             assert engine.LAST_PWM_ENGINE == "device"
@@ -2091,6 +2432,9 @@ def main() -> int:
     max_err = max(max_err, entry["entry"]["max_abs_err"])
     hybrid = run_hybrid_phase(big.name, fasta, dev, n_bases)
     run_shoot_phase(big.name)
+    cards = run_cards_phase(big.name, fasta, dev)
+    if cards is not None:
+        max_err = max(max_err, cards.pop("max_abs_err"))
     big.cleanup()
     print(f"all phases done in {time.perf_counter() - t_start:.1f} s",
           flush=True)
@@ -2112,11 +2456,15 @@ def main() -> int:
     # rates per width, the count phase's walls at either end by corpus
     # size with the cost model fitted to them, the fraction the planner's
     # defaults give, the device share's launches per forced fraction, and
-    # the walls of the planner's choice against the pure device count
+    # the walls of the planner's choice against the pure device count;
+    # card_launches: the main path's launches by card index; cards (null
+    # on one card): the multi-card phase's launches by card of each run
+    # (the --devices main path's run in cli_launches), the kernel on each
+    # card's own inputs, and every rank's report of the NCCL jobs
     print(json.dumps({"kernels": [{
         "name": "histogram", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,
-        "tier_launches": tier_launches,
+        "tier_launches": tier_launches, "card_launches": card_launches,
         "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": bound, "bound_by": "bytes", "library_ms": library_ms,
         "tiers": tiers,
@@ -2126,7 +2474,7 @@ def main() -> int:
         "exact_library_ms": exact["library_ms"],
         "mesh": mesh, "processes": procs,
         "entry_launches": entry["entry_launches"], "entry": entry["entry"],
-        "hybrid": hybrid}]}), flush=True)
+        "hybrid": hybrid, "cards": cards}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

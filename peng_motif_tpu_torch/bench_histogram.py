@@ -1,8 +1,10 @@
-"""Measurements of the histogram kernels on one CUDA card.
+"""Measurements of the histogram kernels on one CUDA card, and of the
+count over several.
 
     python -m peng_motif_tpu_torch.bench_histogram check
     python -m peng_motif_tpu_torch.bench_histogram tiers [--parent DIR]
     python -m peng_motif_tpu_torch.bench_histogram walls --repo DIR [--runs N]
+    python -m peng_motif_tpu_torch.bench_histogram mesh [--runs N]
 
 ``check``  builds the kernels, prints what ptxas reports for each
            (registers, shared memory, spills), launches every variant of
@@ -24,6 +26,22 @@
            -w 8, MafK -w 10 and the 51.2-Mbase corpus -w 10, warm, and
            prints the job walls as one JSON line; run it for two
            checkouts in turns to compare them.
+``mesh``   the count over the cards of one machine (two or more; the
+           four-card legs with four): the job wall and the --timing
+           "count" wall of the CLI with --devices 1, 2, 4 in turns on the
+           51.2-Mbase corpus at -w 10 and -w 12 and on the same
+           generator's 204.8-Mbase corpus (100,000 rows, seed 7) at -w 10,
+           with the scaling efficiency wall(1) / (m wall(m)); the count of
+           each of those traced with torch.profiler on a mesh of one and
+           of all cards (kernel time, kernel window and copies per card,
+           and the time two cards or more count at once); the copies of a
+           4**10 and a 4**12 table onto card 0 (parallel/sharded.
+           _sum_on_first); one NCCL all-reduce of each table over one
+           process a card; the job walls, process start to exit, of
+           --num-processes with one card a process against --devices in
+           one process and against one card.  Prints every card's name,
+           power limit and the links between the cards (:func:`links`)
+           first, and everything as one JSON line last.
 
 Every mode needs a CUDA device and prints the card's name and power limit
 first.
@@ -56,6 +74,30 @@ def card() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def links() -> str:
+    """What the machine says of the links between its cards: ``nvidia-smi
+    topo -m`` and ``nvidia-smi nvlink --status``, each with its exit code
+    (a machine may refuse either, as one four-card H100 host refuses
+    ``topo -m``; the refusal is reported, not raised), and torch's
+    peer-access matrix."""
+    import torch
+
+    out = []
+    for cmd in (["nvidia-smi", "topo", "-m"],
+                ["nvidia-smi", "nvlink", "--status"]):
+        p = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
+        out.append(f"$ {' '.join(cmd)} (exit {p.returncode})\n"
+                   + (p.stdout + p.stderr).strip())
+    n = torch.cuda.device_count()
+    out.append("peer access (torch.cuda.can_device_access_peer, row to "
+               "column): " + "; ".join(
+                   f"cuda:{i} " + "".join(
+                       "-" if i == j else
+                       "y" if torch.cuda.can_device_access_peer(i, j)
+                       else "n" for j in range(n)) for i in range(n)))
+    return "\n".join(out)
 
 
 def variants(n_bins: int, n: int):
@@ -446,16 +488,407 @@ def mode_walls(repo, runs, large_fasta):
     return 0
 
 
+def _median_range(xs):
+    import statistics
+
+    return dict(median=statistics.median(xs), lo=min(xs), hi=max(xs),
+                runs=len(xs))
+
+
+def _cli_wall(argv):
+    """(job wall s, --timing "count" s) of one in-process CLI run."""
+    import contextlib
+    import io
+
+    from .cli import main
+
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(err):
+        rc = main(argv + ["--timing"])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"CLI exited {rc}: {argv}\n{err.getvalue()}")
+    for line in err.getvalue().splitlines():
+        if line.startswith("[TIMING] count: "):
+            return wall, float(line.split(": ")[1].split()[0]) / 1e3
+    raise RuntimeError(f"no count timing in:\n{err.getvalue()}")
+
+
+def mesh_walls(corpora, meshes, runs):
+    """{corpus label: {mesh size: {"job": ..., "count": ...}}}: the CLI
+    (device engine, --devices m) in turns over the mesh sizes, forward
+    then backward, after one warm-up run each."""
+    out = {}
+    for label, (fasta, w) in corpora.items():
+        argv = [fasta, "-w", str(w), "--device", "cuda", "--engine", "tpu",
+                "-o", os.devnull]
+        walls = {m: [] for m in meshes}
+        for m in meshes:
+            _cli_wall(argv + ["--devices", str(m)])
+        for i in range(runs):
+            for m in (meshes if i % 2 == 0 else meshes[::-1]):
+                walls[m].append(_cli_wall(argv + ["--devices", str(m)]))
+        out[label] = {m: {"job": _median_range([w[0] for w in ws]),
+                          "count": _median_range([w[1] for w in ws])}
+                      for m, ws in walls.items()}
+        for m, r in out[label].items():
+            base = out[label][meshes[0]]
+            eff = {k: base[k]["median"] / (m * r[k]["median"])
+                   for k in ("job", "count")}
+            r["efficiency"] = eff
+            print(f"  {label} --devices {m}: job {r['job']['median']:.4f} s "
+                  f"({r['job']['lo']:.4f}-{r['job']['hi']:.4f}), count "
+                  f"{r['count']['median']:.4f} s ({r['count']['lo']:.4f}-"
+                  f"{r['count']['hi']:.4f}), {r['job']['runs']} runs; "
+                  f"scaling efficiency wall(1)/(m wall(m)): job "
+                  f"{eff['job']:.3f}, count {eff['count']:.3f}", flush=True)
+    return out
+
+
+def trace_count(fasta, w, mesh, path):
+    """The sharded stream count of ``fasta`` at ``w`` over ``mesh`` (and
+    the fetch the engine makes of it), traced by torch.profiler.  Per
+    card: kernel time, the window from its first to its last kernel, and
+    its copies (kind, bytes, time); and the time at least two cards
+    counted at once."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from .engine import _fetch
+    from .io.fasta import load_sequence_set
+    from .parallel.sharded import stream_count_sharded
+
+    ss = load_sequence_set(fasta)
+
+    def count():
+        out = stream_count_sharded(ss.sequences, w, True, mesh,
+                                   flat_codes=ss._flat_codes, bg_order=2,
+                                   n_undefined=ss.n_undefined)[2]
+        _fetch(out)
+
+    count()
+    for d in set(mesh):
+        torch.cuda.synchronize(d)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        count()
+        for d in set(mesh):
+            torch.cuda.synchronize(d)
+    wall = time.perf_counter() - t0
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    cards = {}
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in ("kernel",
+                                                      "gpu_memcpy"):
+            continue
+        dev = int(e.get("args", {}).get("device", e.get("pid", -1)))
+        c = cards.setdefault(dev, {"kernel_us": 0.0, "kernels": 0,
+                                   "spans": [], "copies": {}})
+        if e["cat"] == "kernel":
+            c["kernel_us"] += e["dur"]
+            c["kernels"] += 1
+            c["spans"].append((e["ts"], e["ts"] + e["dur"]))
+        else:
+            cp = c["copies"].setdefault(e["name"],
+                                        {"n": 0, "bytes": 0, "us": 0.0})
+            cp["n"] += 1
+            cp["bytes"] += int(e.get("args", {}).get("bytes", 0))
+            cp["us"] += e["dur"]
+    if not any(c["kernels"] for c in cards.values()):
+        raise RuntimeError("the trace holds no kernel on any card")
+    t_first = min(s[0] for c in cards.values() for s in c["spans"])
+    # time with at least two cards inside a kernel, from the spans' edges
+    edges = sorted((t, +1 if k == 0 else -1) for c in cards.values()
+                   for s in c["spans"] for k, t in enumerate(s))
+    both, busy_cards, last = 0.0, 0, None
+    per_card_busy = {d: _union(c["spans"]) for d, c in cards.items()}
+    for t, step in edges:
+        if busy_cards >= 2 and last is not None:
+            both += t - last
+        busy_cards += step
+        last = t
+    for d, c in sorted(cards.items()):
+        sp = c.pop("spans")
+        c["window_us"] = ((min(s[0] for s in sp) - t_first,
+                           max(s[1] for s in sp) - t_first) if sp else None)
+        c["busy_us"] = per_card_busy[d]
+    return dict(wall_s=wall, cards=cards, two_or_more_busy_us=both)
+
+
+def _union(spans):
+    """Microseconds covered by the union of (start, end) spans."""
+    total, end = 0.0, None
+    for s, e in sorted(spans):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def peer_copies(meshes_max):
+    """ms of one copy of a 4**10 and a 4**12 int32 table from each card
+    k > 0 to card 0 (the copies of parallel/sharded._sum_on_first; on the
+    source card's stream, where torch runs a copy between cards), and of
+    ``_sum_on_first`` itself over all the cards."""
+    import torch
+
+    from .parallel.sharded import _sum_on_first
+
+    out = {}
+    mesh = tuple(torch.device("cuda", k) for k in range(meshes_max))
+    for W in (10, 12):
+        nbytes = 4 * 4 ** W
+        row = {"bytes": nbytes, "copy_ms": {}}
+        for k in range(1, meshes_max):
+            src = torch.ones(4 ** W, dtype=torch.int32, device=mesh[k])
+            for _ in range(3):
+                src.to(mesh[0])
+            torch.cuda.synchronize(k)
+            torch.cuda.synchronize(0)
+            stream = torch.cuda.current_stream(mesh[k])
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            with torch.cuda.device(k):
+                start.record(stream)
+                for _ in range(20):
+                    src.to(mesh[0])
+                stop.record(stream)
+            torch.cuda.synchronize(k)
+            row["copy_ms"][k] = start.elapsed_time(stop) / 20
+        walls = []
+        for _ in range(10):
+            parts = [torch.ones(4 ** W, dtype=torch.int32, device=d)
+                     for d in mesh]
+            for d in mesh:
+                torch.cuda.synchronize(d)
+            t0 = time.perf_counter()
+            total = _sum_on_first(parts, mesh)
+            torch.cuda.synchronize(0)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            assert int(total[0]) == meshes_max
+        row["sum_on_first_ms"] = _median_range(walls)
+        row["sum_on_first_bytes"] = (meshes_max - 1) * nbytes
+        out[W] = row
+        print(f"  4**{W} int32 table ({nbytes} B): one copy card k -> card 0 "
+              + ", ".join(f"k={k} {v:.4f} ms ({nbytes / v / 1e6:.1f} GB/s)"
+                          for k, v in row["copy_ms"].items())
+              + f"; _sum_on_first over {meshes_max} cards "
+              f"({row['sum_on_first_bytes']} B copied) median "
+              f"{row['sum_on_first_ms']['median']:.4f} ms", flush=True)
+    return out
+
+
+_NCCL = r"""
+import json, sys, time
+import torch
+import torch.distributed as dist
+sys.path.insert(0, sys.argv[4])
+from peng_motif_tpu_torch.parallel import multihost as mh
+coord, world, rank = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+dev = torch.device("cuda", 0)
+ctx = mh.init_multihost(coord, world, rank, timeout_s=120, device=dev,
+                        mesh=(dev,))
+out = {"backend": ctx.backend}
+try:
+    for W in (10, 12):
+        t = torch.ones(4 ** W, dtype=torch.int32, device=dev)
+        assert int(mh._all_reduce_sum(ctx, t)[0]) == world
+        t.zero_()
+        for _ in range(3):
+            mh._all_reduce_sum(ctx, t)
+        ms = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            dist.barrier(group=ctx.group)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            mh._all_reduce_sum(ctx, t)
+            stop.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(stop))
+        out[str(W)] = ms
+finally:
+    mh.shutdown_multihost()
+if rank == 0:
+    print(json.dumps(out))
+"""
+
+
+def nccl_all_reduce(world):
+    """ms of one all-reduce of the 4**10 and the 4**12 int32 table over
+    ``world`` processes, one card each (parallel/multihost._all_reduce_sum
+    on the NCCL group that init_multihost makes), from rank 0."""
+    from .parallel.multihost import card_sets
+
+    sys.path.insert(0, REPO)
+    from chip_smoke import free_port, seeing
+
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _NCCL, f"localhost:{port}", str(world),
+         str(r), REPO], env=seeing(cards), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+        for r, cards in enumerate(card_sets(world, world))]
+    results = []
+    try:
+        for p in procs:
+            results.append(p.communicate(timeout=300) + (p.returncode,))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (_, err, rc) in enumerate(results):
+        if rc != 0:
+            raise RuntimeError(f"NCCL rank {r} exited {rc}:\n{err[-3000:]}")
+    got = json.loads(results[0][0].strip().splitlines()[-1])
+    if got["backend"] != "nccl":
+        raise RuntimeError(f"the ranks took {got['backend']}, not nccl")
+    out = {}
+    for W in (10, 12):
+        out[W] = _median_range(got[str(W)])
+        print(f"  NCCL all-reduce of the 4**{W} int32 table ({4 * 4 ** W} "
+              f"B) over {world} processes, one card each: median "
+              f"{out[W]['median']:.4f} ms ({out[W]['lo']:.4f}-"
+              f"{out[W]['hi']:.4f}), 20 runs", flush=True)
+    return out
+
+
+def process_walls(fasta, n_cards, runs, tmp):
+    """Job walls, process start to exit, of 51.2 Mbases -w 10 on the
+    device engine: ``--num-processes n_cards`` with one card each,
+    ``--devices n_cards`` in one process, and one process on one card,
+    in turns.  Every job's MEME must equal the first one's."""
+    from .parallel.multihost import card_sets
+
+    sys.path.insert(0, REPO)
+    from chip_smoke import process_job, read_bytes, seeing
+
+    def single(m):
+        out = os.path.join(tmp, f"single_{m}.meme")
+        argv = [sys.executable, "-m", "peng_motif_tpu_torch", fasta, "-w",
+                "10", "--device", "cuda", "--engine", "tpu", "-o", out]
+        if m > 1:
+            argv += ["--devices", str(m)]
+        t0 = time.perf_counter()
+        p = subprocess.run(argv, cwd=REPO, capture_output=True, text=True,
+                           timeout=300,
+                           env=seeing(",".join(map(str, range(m)))))
+        if p.returncode != 0:
+            raise RuntimeError(p.stderr[-3000:])
+        return time.perf_counter() - t0, read_bytes(out)
+
+    legs = {
+        "one card": lambda: single(1),
+        f"--devices {n_cards}": lambda: single(n_cards),
+        f"--num-processes {n_cards}": lambda: process_job(
+            tmp, fasta, "10", "walls", card_sets(n_cards, n_cards))[:2]}
+    walls, meme = {k: [] for k in legs}, None
+    for i in range(runs):
+        for k in (list(legs) if i % 2 == 0 else list(legs)[::-1]):
+            wall, got = legs[k]()
+            meme = meme or got
+            if got != meme:
+                raise RuntimeError(f"{k}: MEME bytes differ")
+            walls[k].append(wall)
+    out = {k: _median_range(v) for k, v in walls.items()}
+    for k, r in out.items():
+        print(f"  51.2 Mbases -w 10, {k}: job wall median {r['median']:.3f} s "
+              f"({r['lo']:.3f}-{r['hi']:.3f}), {r['runs']} runs, "
+              f"process start to exit", flush=True)
+    print(f"  MEME bytes identical across all {3 * runs} jobs", flush=True)
+    return out
+
+
+def mode_mesh(runs):
+    import tempfile
+
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        raise RuntimeError(f"mesh: needs two cards or more, found {n}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout
+    topo = links()
+    print(smi.rstrip(), flush=True)
+    print(topo, flush=True)
+    meshes = [1, 2] + ([4] if n >= 4 else [])
+    sys.path.insert(0, REPO)
+    from chip_smoke import write_large_corpus
+
+    from .ops.histogram import build_kernels
+
+    build_kernels()
+    res = {"cards": smi.strip().splitlines(), "topology": topo}
+    with tempfile.TemporaryDirectory() as tmp:
+        large = os.path.join(tmp, "large.fasta")
+        huge = os.path.join(tmp, "huge.fasta")
+        write_large_corpus(large)
+        write_large_corpus(huge, n_seq=100_000)
+        print("[mesh] job and count-phase walls by mesh size", flush=True)
+        res["walls"] = mesh_walls({"51.2 Mbases w10": (large, 10),
+                                   "51.2 Mbases w12": (large, 12),
+                                   "204.8 Mbases w10": (huge, 10)},
+                                  meshes, runs)
+        print("[mesh] the count traced on every card", flush=True)
+        res["trace"] = {}
+        for label, fasta, w in (("51.2 Mbases w10", large, 10),
+                                ("51.2 Mbases w12", large, 12),
+                                ("204.8 Mbases w10", huge, 10)):
+            for m in (1, meshes[-1]):
+                mesh = tuple(torch.device("cuda", k) for k in range(m))
+                t = trace_count(fasta, w, mesh,
+                                os.path.join(tmp, f"trace_{w}_{m}.json"))
+                res["trace"][f"{label}, mesh {m}"] = t
+                print(f"  {label}, mesh of {m}: wall {t['wall_s']:.4f} s "
+                      f"(profiled), two or more cards in a kernel at once "
+                      f"{t['two_or_more_busy_us'] / 1e3:.3f} ms", flush=True)
+                for d, c in sorted(t["cards"].items()):
+                    win = c["window_us"]
+                    print(f"    cuda:{d}: {c['kernels']} kernels, "
+                          f"{c['kernel_us'] / 1e3:.3f} ms in kernels (busy "
+                          f"{c['busy_us'] / 1e3:.3f} ms), window "
+                          + (f"{win[0] / 1e3:.3f}-{win[1] / 1e3:.3f} ms"
+                             if win else "none")
+                          + " from the first kernel; copies "
+                          + ", ".join(f"{k} {v['n']} x, {v['bytes']} B, "
+                                      f"{v['us'] / 1e3:.3f} ms"
+                                      for k, v in c["copies"].items()),
+                          flush=True)
+        print("[mesh] peer copies onto card 0", flush=True)
+        res["peer_copies"] = peer_copies(meshes[-1])
+        print("[mesh] NCCL all-reduce", flush=True)
+        res["nccl"] = nccl_all_reduce(meshes[-1])
+        print("[mesh] job walls: processes, one process, one card",
+              flush=True)
+        res["processes"] = process_walls(large, meshes[-1], runs, tmp)
+    print(json.dumps(res, default=str), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("mode", choices=["check", "tiers", "walls"])
+    ap.add_argument("mode", choices=["check", "tiers", "walls", "mesh"])
     ap.add_argument("--parent", default=None,
                     help="tiers: a checkout whose kernel is timed as well")
     ap.add_argument("--repo", default=REPO,
                     help="walls: the checkout whose CLI is run")
-    ap.add_argument("--runs", type=int, default=5)
+    ap.add_argument("--runs", type=int, default=5,
+                    help="walls, mesh: timed runs of each leg")
     ap.add_argument("--large-fasta", default=None,
                     help="walls: the 51.2-Mbase corpus (default: written "
                          "anew by chip_smoke.py's write_large_corpus)")
@@ -469,6 +902,8 @@ def main(argv=None) -> int:
         rc = mode_check()
     elif args.mode == "tiers":
         rc = mode_tiers(args.parent)
+    elif args.mode == "mesh":
+        rc = mode_mesh(args.runs)
     else:
         rc = mode_walls(args.repo, args.runs, args.large_fasta)
     print(f"{args.mode}: done in {time.perf_counter() - t0:.1f} s",

@@ -37,6 +37,13 @@ def _forward(codes, v0, v1, v2, length: int = 6, device=None):
     return stats.zscores(counts, expected)
 
 
+def dryrun_mesh_size(where: str) -> int:
+    """The mesh :func:`dryrun_multichip` runs over from the command line:
+    every card there is on ``cuda`` (as the reference's runs over every
+    device it sees), four virtual shards on ``cpu``."""
+    return torch.cuda.device_count() if where == "cuda" else 4
+
+
 def entry():
     """Returns (fn, example_args): ``fn(codes, v0, v1, v2, length=6,
     device=None)``, and the reference entry point's example arguments."""
@@ -55,5 +62,6 @@ if __name__ == "__main__":
     fn, args = entry()
     out = fn(*args, device=where)
     print("entry ok:", tuple(out.shape), out.device)
-    dryrun_multichip(4 if where == "cpu" else 1, where)
-    print("dryrun_multichip ok")
+    n = dryrun_mesh_size(where)
+    dryrun_multichip(n, where)
+    print(f"dryrun_multichip({n}, {where}) ok")

@@ -40,10 +40,12 @@ _SRC = os.path.join(os.path.dirname(os.path.dirname(
 _SO = os.path.join(BUILD_DIR, "libpeng_kernels.so")
 
 # kernel launches made by :func:`histogram` (one per launch, nowhere
-# else), in all and per tier (each tier is one kernel): a run reads them
-# to show the main path went through the kernels
+# else), in all, per tier (each tier is one kernel) and per card (by
+# device index): a run reads them to show the main path went through the
+# kernels, on every card of a mesh
 LAUNCHES = 0
 TIER_LAUNCHES = {"shared": 0, "l2": 0}
+DEVICE_LAUNCHES: dict = {}
 
 _lock = threading.Lock()
 _lib = None
@@ -199,6 +201,8 @@ def launch_plan(ids: torch.Tensor, inc: torch.Tensor, n_bins: int,
                     f"(tier {p.tier}, bins [{lo}, {hi}) of {n_bins})")
             LAUNCHES += 1
             TIER_LAUNCHES[p.tier] += 1
+            DEVICE_LAUNCHES[ids.device.index] = (
+                DEVICE_LAUNCHES.get(ids.device.index, 0) + 1)
 
 
 def histogram(ids: torch.Tensor, inc: torch.Tensor, n_bins: int,

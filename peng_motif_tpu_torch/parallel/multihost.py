@@ -80,6 +80,23 @@ def choose_backend(device_type: str, cards_by_rank: Sequence[Sequence[str]]
     return "nccl" if len(set(cards)) == len(cards) else "gloo"
 
 
+def card_sets(n_cards: int, num_processes: int) -> List[str]:
+    """What a launcher sets as ``CUDA_VISIBLE_DEVICES`` for each of
+    ``num_processes`` processes on a machine with ``n_cards`` cards, so
+    that every process owns cards of its own: consecutive blocks of
+    ``n_cards // num_processes`` cards ("0", "1", ... with one card a
+    process; "0,1", "2,3" with two).  A process started without it sees
+    every card, and its default mesh is all of them: the processes then
+    share cards, and :func:`choose_backend` answers gloo."""
+    if not 1 <= num_processes <= n_cards:
+        raise ValueError(
+            f"{num_processes} processes cannot own cards of their own "
+            f"among {n_cards}")
+    per = n_cards // num_processes
+    return [",".join(str(c) for c in range(p * per, (p + 1) * per))
+            for p in range(num_processes)]
+
+
 def _card_ids(mesh: Mesh) -> List[str]:
     return [str(torch.cuda.get_device_properties(d).uuid)
             for d in mesh if d.type == "cuda"]

@@ -17,12 +17,20 @@ on every device (``out_specs=P()``), here it is resident on ``mesh[0]``
 only: the table-local phases (stats, climb, PWM, EM) run on one device,
 so the other replicas would be copies that nothing reads.
 
-On CUDA the shards overlap: uploads and launches are asynchronous, and
-nothing in a shard's program waits for its device, so device ``i + 1``
-receives its shard while device ``i`` counts.  The functions do not ask
-whether the mesh's entries are distinct; shards on one device simply run
-in turn.  Nothing is compiled per call, so there is no program cache
-(the reference's ``lru_cache`` exists for XLA's re-jit).
+On CUDA the shards overlap as far as the one host thread that enqueues
+them allows: launches are asynchronous and nothing in a shard's program
+waits for its device, so device ``i + 1`` receives its shard while
+device ``i`` counts, but each device starts only when the host has
+enqueued the shards before it.  On four H100s (torch.profiler,
+``python -m peng_motif_tpu_torch.bench_histogram mesh``) the four
+kernel windows are staggered by the host's time to enqueue one shard
+(16-20 us a launch: 5 ms a shard at 51.2 Mbases -w 10, 30 ms at 204.8
+Mbases) against ~9 ms and ~34 ms of kernels a card, so the cards count
+at the same time for part of the count only; the pageable upload is
+0.4-1.8 ms of that stagger.  The functions do not ask whether the
+mesh's entries are distinct; shards on one device simply run in turn.
+Nothing is compiled per call, so there is no program cache (the
+reference's ``lru_cache`` exists for XLA's re-jit).
 
 The reference's ``_i32_shard_program`` (the uint16-overflow refetch) has
 no counterpart: the port fetches the canonical slice as int32 from the

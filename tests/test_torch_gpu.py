@@ -3,7 +3,11 @@ plain PyTorch version, the stream count, the exact engine's batch count
 and the post-count programs (flat tables, stats, walks, adv-PWM, EM) on
 the card against the same programs on the CPU, and the CLI through the
 kernel (device engine, and the exact engine with its count forced onto
-the card).  Every test skips without a CUDA device.
+the card).  Every test skips without a CUDA device.  The multi-card
+tests at the end (the kernel on every card, the sharded counts, the
+count phase and the CLI over distinct cards, multi-process jobs over
+NCCL with one or two cards a process, dryrun_multichip) ask the
+``cards(n)`` fixture for their cards and skip on a machine with fewer.
 
 This file imports neither jax nor the reference package, so that it runs
 on a machine without them:
@@ -49,6 +53,7 @@ from peng_motif_tpu_torch.parallel.mesh import make_data_mesh
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "golden")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 pytestmark = pytest.mark.gpu
 
@@ -669,3 +674,252 @@ def test_em_on_card_matches_cpu(W, cuda):
     np.testing.assert_array_equal(outs[str(cuda)][1], outs["cpu"][1])
     np.testing.assert_allclose(outs[str(cuda)][0], outs["cpu"][0], rtol=0,
                                atol=5e-6)
+
+
+# -- several cards: the mesh, the kernel on cuda:k, NCCL between cards ------
+
+
+@pytest.fixture
+def cards():
+    """``cards(n)``: the mesh ``cuda:0 … cuda:n-1``; skips the test on a
+    machine with fewer cards (decided here, when the test runs)."""
+    def need(n):
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if have < n:
+            pytest.skip(f"needs {n} CUDA cards, the machine has {have}")
+        return tuple(torch.device("cuda", k) for k in range(n))
+    return need
+
+
+def _zero_launches():
+    th.LAUNCHES = 0
+    th.TIER_LAUNCHES.update(shared=0, l2=0)
+    th.DEVICE_LAUNCHES.clear()
+
+
+@pytest.mark.parametrize("m", [2, 4])
+def test_make_data_mesh_names_distinct_cards(m, cards):
+    mesh = cards(m)
+    assert make_data_mesh(m, "cuda") == mesh
+    assert len({str(torch.cuda.get_device_properties(d).uuid)
+                for d in mesh}) == m
+
+
+@pytest.mark.parametrize("n_bins", [128, 4 ** 6, 4 ** 8, 4 ** 10, 4 ** 12])
+def test_kernel_on_every_card(n_bins, cards):
+    """The wrapper's device switch: the kernel launches on the card its
+    inputs live on (counted there), on that card's stream, and agrees
+    with the plain version and with card 0."""
+    cards(2)
+    ids, inc = _inputs(3_000_001, n_bins, seed=n_bins)
+    want = None
+    for d in make_data_mesh(None, "cuda"):         # every card
+        ids_d = torch.from_numpy(ids).to(d)[1:]
+        inc_d = torch.from_numpy(inc).to(d)[1:]
+        before = th.DEVICE_LAUNCHES.get(d.index, 0)
+        with torch.cuda.device(0):        # the current card is another
+            got = th.histogram(ids_d, inc_d, n_bins)
+        torch.cuda.synchronize(d)
+        assert got.device == d
+        assert th.DEVICE_LAUNCHES[d.index] == before + len(
+            th.plan(n_bins, ids_d.numel()).ranges)
+        assert torch.equal(got, th.histogram_plain(ids_d, inc_d, n_bins))
+        want = got.cpu() if want is None else want
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("wire2", [False, True], ids=["mask", "wire2"])
+def test_stream_count_sharded_over_cards(m, wire2, cards):
+    """Shards on distinct cards, each card launching for both tables,
+    the sums on cuda:0: identical to the same mesh size on the CPU."""
+    mesh = cards(m)
+    rng = np.random.default_rng(16 + m)
+    if wire2:
+        seqs = [rng.integers(1, 5, size=400).astype(np.uint8)
+                for _ in range(300)]
+    else:
+        seqs = [rng.integers(0, 5, size=int(n)).astype(np.uint8)
+                for n in rng.integers(3, 3000, size=200)]
+    flat = np.concatenate(seqs)
+    _zero_launches()
+    _, lay, out = tsh.stream_count_sharded(seqs, 8, True, mesh,
+                                           flat_codes=flat, bg_order=2)
+    assert tsc.wire2_eligible(lay, int((flat == 0).sum())) == wire2
+    assert th.DEVICE_LAUNCHES == {k: 2 for k in range(m)}
+    assert all(t.device == mesh[0] for t in out)
+    _, _, cpu = tsh.stream_count_sharded(seqs, 8, True,
+                                         make_data_mesh(m, "cpu"),
+                                         flat_codes=flat, bg_order=2)
+    for a, b in zip(out, cpu):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("m", [2, 4])
+def test_batch_and_bg_counts_over_cards(m, cards):
+    mesh = cards(m)
+    rng = np.random.default_rng(30 + m)
+    codes = rng.integers(1, 5, size=(303, 640)).astype(np.uint8)
+    codes[rng.random(codes.shape) < 0.01] = 0
+    codes[4, :128] = np.tile(np.array([1, 3], dtype=np.uint8), 64)
+    host = tcnt.CountJob(codes, 8, True, "cpu").finish()
+    _zero_launches()
+    got = tsh.count_patterns_sharded(codes, 8, True, mesh)
+    assert th.DEVICE_LAUNCHES == {k: 1 for k in range(m)}
+    np.testing.assert_array_equal(got[0], host[0])
+    assert got[1] == host[1]
+    full = tsh.count_device_full_sharded(codes, 8, True, mesh)
+    cpu = tsh.count_device_full_sharded(codes, 8, True,
+                                        make_data_mesh(m, "cpu"))
+    for a, b in zip(full[:4], cpu[:4]):
+        assert a.device == mesh[0] and torch.equal(a.cpu(), b)
+    lengths = rng.integers(600, 641, size=codes.shape[0]).astype(np.int32)
+    seqs = [codes[i, : lengths[i]] for i in range(codes.shape[0])]
+    _zero_launches()
+    bg = tsh.count_bg_kmers_sharded(codes, 2, mesh, lengths=lengths)
+    assert th.DEVICE_LAUNCHES == {k: 3 for k in range(m)}
+    for g, w in zip(bg, tbg.count_kmers(seqs, 2)):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("m", [2, 4])
+def test_count_phase_over_cards_stays_on_the_first(m, cards):
+    """engine._count_phase over distinct cards: the resident table lives
+    on cuda:0, stats_program completes it there to the host table, and
+    nothing after the count allocates on the other cards."""
+    from types import SimpleNamespace
+
+    from peng_motif_tpu_torch.io.fasta import load_sequence_set
+
+    mesh = cards(m)
+    sset = load_sequence_set(os.path.join(GOLDEN_DIR, "synthetic_n.fasta"))
+    peng = SimpleNamespace(
+        sequence_set=sset,
+        bg_model=tbg.BackgroundModel(sset.sequences, order=2,
+                                     interpolate=True, defer=True))
+    host, ltot, dev, fix_ids, fix_dv, host_add = engine._count_phase(
+        peng, 8, True, mesh[0], mesh=mesh)
+    assert host_add is None and dev.device == mesh[0]
+    peaks = {}
+    for d in mesh[1:]:
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+        peaks[d] = torch.cuda.memory_allocated(d)
+    st = engine.stats_program(
+        engine.resident_state(dev, ltot, fix_ids, fix_dv, peng.bg_model.v,
+                              mesh[0]), 8, 2, 2, True)
+    assert st["counts"].device == mesh[0]
+    np.testing.assert_array_equal(st["counts"].cpu().numpy(), host)
+    for d, base in peaks.items():
+        assert torch.cuda.max_memory_allocated(d) <= base, d
+
+
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("engine_flag", ["tpu", "exact"])
+def test_cli_devices_over_cards(m, engine_flag, cards, tmp_path, capsys,
+                                monkeypatch):
+    """--devices m over distinct cards: every card launches, the MEME
+    bytes and stdout equal the run without --devices; the exact engine
+    (its count on the cards) stays byte-identical to golden."""
+    cards(m)
+    if engine_flag == "exact":
+        monkeypatch.setenv("PENG_COUNT_HOST_MAX_BASES", "0")
+    outs = {}
+    for label, extra in (("mesh", ["--devices", str(m)]), ("single", [])):
+        _zero_launches()
+        meme = tmp_path / f"{label}.meme"
+        capsys.readouterr()
+        assert main([os.path.join(GOLDEN_DIR, "MafK.fasta"), "-w", "8",
+                     "--device", "cuda", "--engine", engine_flag, "-o",
+                     str(meme)] + extra) == 0
+        if label == "mesh":
+            # the device engine: both tables a card; the exact engine: the
+            # batch count and three background tables a card
+            assert th.DEVICE_LAUNCHES == {
+                k: 2 if engine_flag == "tpu" else 4 for k in range(m)}
+        outs[label] = (meme.read_bytes(), capsys.readouterr().out)
+    assert outs["mesh"] == outs["single"]
+    if engine_flag == "exact":
+        with open(os.path.join(GOLDEN_DIR, "mafk_w8.meme"), "rb") as g:
+            assert outs["mesh"][0] == g.read()
+
+
+def _seeing(cards):
+    """A child's environment that shows it only ``cards`` (indices among
+    this process's cards)."""
+    parent = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if parent:
+        names = parent.split(",")
+        cards = ",".join(names[int(c)] for c in cards.split(","))
+    return dict(os.environ, CUDA_VISIBLE_DEVICES=cards, PYTHONPATH=REPO)
+
+
+@pytest.mark.parametrize("procs,per", [(4, 1), (2, 2)], ids=["4x1", "2x2"])
+def test_processes_over_nccl(procs, per, cards, tmp_path):
+    """One process per card (or per two cards, --devices 2), each given
+    its own cards by CUDA_VISIBLE_DEVICES as a launcher sets it: every
+    rank reports backend nccl and counts on its own cards; process 0's
+    MEME equals the single-process run's."""
+    import re
+    import subprocess
+    import sys
+
+    from peng_motif_tpu_torch.parallel.multihost import card_sets
+
+    cards(procs * per)
+    fasta = os.path.join(GOLDEN_DIR, "MafK.fasta")
+    single = tmp_path / "single.meme"
+    assert main([fasta, "-w", "10", "--device", "cuda", "--engine", "tpu",
+                 "-o", str(single)]) == 0
+    port = _free_port()
+    out0 = tmp_path / "p0.meme"
+    ps = [subprocess.Popen(
+        [sys.executable, "-m", "peng_motif_tpu_torch", fasta, "-w", "10",
+         "--device", "cuda", "--engine", "tpu", "--num-processes",
+         str(procs), "--process-id", str(r), "--coordinator",
+         f"localhost:{port}"]
+        + (["--devices", str(per)] if per > 1 else [])
+        + (["-o", str(out0)] if r == 0 else []),
+        cwd=REPO, env=_seeing(s), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+        for r, s in enumerate(card_sets(procs * per, procs))]
+    results = []
+    try:
+        for p in ps:
+            out, err = p.communicate(timeout=300)
+            results.append((p.returncode, out, err))
+    finally:
+        for p in ps:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    edges = []
+    for r, (rc, out, err) in enumerate(results):
+        assert rc == 0, err[-3000:]
+        assert r == 0 or out == ""
+        hit = re.search(
+            rf"rank {r} of {procs} counted chunk rows \[(\d+), (\d+)\) on "
+            rf"{per} x cuda, histogram launches [1-9]\d* .*backend nccl", err)
+        assert hit, err[-3000:]
+        edges.append((int(hit.group(1)), int(hit.group(2))))
+    assert edges[0][0] == 0
+    assert all(a[1] == b[0] for a, b in zip(edges, edges[1:]))
+    assert out0.read_bytes() == single.read_bytes()
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@pytest.mark.parametrize("m", [2, 4])
+def test_dryrun_multichip_over_cards(m, cards):
+    cards(m)
+    from peng_motif_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    _zero_launches()
+    dryrun_multichip(m, "cuda")
+    assert sorted(th.DEVICE_LAUNCHES) == list(range(m))

@@ -139,11 +139,12 @@ def test_masked_ids_are_never_read():
 
 
 def test_cpu_path_launches_no_kernel():
-    before = th.LAUNCHES
+    before, by_card = th.LAUNCHES, dict(th.DEVICE_LAUNCHES)
     ids, inc = _inputs(4000, 4 ** 8, seed=6)
     _port(ids, inc, 4 ** 8)
     _port(*_edge("empty", 384), 384)
     assert th.LAUNCHES == before
+    assert th.DEVICE_LAUNCHES == by_card
 
 
 @pytest.mark.parametrize("bad", [

@@ -252,3 +252,27 @@ def test_world_of_one_in_process(both):
     for got in (bg, bg_worker):
         for g, w in zip(got, tbg.count_kmers(ss.sequences, 2)):
             np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("n_cards,n_procs,want", [
+    (4, 4, ["0", "1", "2", "3"]), (4, 2, ["0,1", "2,3"]), (4, 1, ["0,1,2,3"]),
+    (2, 2, ["0", "1"]), (8, 4, ["0,1", "2,3", "4,5", "6,7"])])
+def test_launcher_card_sets_give_each_process_its_own_cards(n_cards, n_procs,
+                                                            want):
+    """What a launcher sets as CUDA_VISIBLE_DEVICES per process: distinct
+    card sets, so choose_backend answers nccl for the processes' stated
+    UUIDs; without it every process sees every card and the cards are
+    shared (gloo)."""
+    uuids = [f"GPU-{c:02d}" for c in range(n_cards)]
+    sets = mh.card_sets(n_cards, n_procs)
+    assert sets == want
+    seen = [[uuids[int(c)] for c in s.split(",")] for s in sets]
+    assert mh.choose_backend("cuda", seen) == "nccl"
+    if n_procs > 1:
+        assert mh.choose_backend("cuda", [uuids] * n_procs) == "gloo"
+
+
+@pytest.mark.parametrize("n_cards,n_procs", [(2, 4), (4, 0), (0, 1)])
+def test_launcher_card_sets_refuse_too_many_processes(n_cards, n_procs):
+    with pytest.raises(ValueError):
+        mh.card_sets(n_cards, n_procs)

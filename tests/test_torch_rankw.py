@@ -435,3 +435,27 @@ def test_dryrun_is_reexported():
     from peng_motif_tpu_torch.parallel import dryrun
 
     assert graft_entry.dryrun_multichip is dryrun.dryrun_multichip
+
+
+@pytest.mark.parametrize("where,cards,want", [("cuda", 4, 4), ("cuda", 2, 2),
+                                              ("cuda", 1, 1), ("cpu", 1, 4)])
+def test_dryrun_mesh_size_follows_the_card_count(where, cards, want,
+                                                 monkeypatch):
+    """``python -m peng_motif_tpu_torch.graft_entry cuda`` runs
+    dryrun_multichip over every card there is, as the reference's runs
+    over every device; on the CPU over four virtual shards."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    assert graft_entry.dryrun_mesh_size(where) == want
+
+
+def test_graft_entry_main_on_the_cpu():
+    import subprocess
+    import sys
+
+    r = subprocess.run(
+        [sys.executable, "-m", "peng_motif_tpu_torch.graft_entry", "cpu"],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+        text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "entry ok: (4096,) cpu" in r.stdout
+    assert "dryrun_multichip(4, cpu) ok" in r.stdout

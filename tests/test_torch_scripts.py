@@ -133,3 +133,69 @@ def test_write_meme_and_json_match_reference_script(tmp_path):
         getattr(shoot, fn)(data, str(got))
         getattr(ref, fn)(data, str(want))
         assert got.read_bytes() == want.read_bytes()
+
+
+# -- python -m peng_motif_tpu_torch.pwm2iupac against scripts/pwm2iupac.py --
+
+_GOLDEN_PWM = "".join(open(os.path.join(GOLDEN, "mafk_w8.meme")).readlines()
+                      [9:22])
+PWM_CASES = {
+    # tests/test_scripts.py's inputs: A, S (C/G), N; and its bad row
+    "asn": "0.97 0.01 0.01 0.01\n0.01 0.485 0.485 0.02\n0.25 0.25 0.25 "
+           "0.25\n",
+    "bad_row": "0.9 0.9 0.9 0.9\n",
+    # the first motif of a golden MEME file, 13 rows
+    "golden_mafk_w8": _GOLDEN_PWM,
+    # one row nearest each IUPAC letter, in a tab-separated file
+    "every_letter": "".join(
+        "\t".join(str(x) for x in row) + "\n" for row in (
+            (0.91, 0.03, 0.03, 0.03), (0.03, 0.91, 0.03, 0.03),
+            (0.03, 0.03, 0.91, 0.03), (0.03, 0.03, 0.03, 0.91),
+            (0.02, 0.48, 0.48, 0.02), (0.48, 0.02, 0.02, 0.48),
+            (0.48, 0.02, 0.48, 0.02), (0.02, 0.48, 0.02, 0.48),
+            (0.48, 0.48, 0.02, 0.02), (0.02, 0.02, 0.48, 0.48),
+            (0.2, 0.3, 0.3, 0.2))),
+    # an exact zero: log2(0) in the distance, the reference's own quirk
+    "zero_cell": "1.0 0.0 0.0 0.0\n0.5 0.5 0.0 0.0\n",
+    "three_columns": "0.5 0.25 0.25\n",
+    "bad_after_good": "0.97 0.01 0.01 0.01\n0.5 0.5 0.5 0.5\n",
+    "empty": "",
+    "missing": None,        # no such file
+}
+# cases whose stderr names no file of either script (tracebacks and
+# numpy's warnings do)
+_SAME_STDERR = {"asn", "bad_row", "golden_mafk_w8", "every_letter",
+                "three_columns", "bad_after_good", "empty", "no_argument"}
+
+
+@pytest.mark.parametrize("case", sorted(PWM_CASES) + ["no_argument"])
+def test_pwm2iupac_same_as_reference_script(case, tmp_path):
+    """The port's pwm2iupac and the repository's script on the same PWM
+    file: identical stdout and exit code (stderr too, where it names no
+    file of either)."""
+    if case == "no_argument":
+        args = []
+    else:
+        path = tmp_path / f"{case}.pwm"
+        if PWM_CASES[case] is not None:
+            path.write_text(PWM_CASES[case])
+        args = [str(path)]
+    runs = {}
+    for label, cmd in (
+            ("ref", [os.path.join(REPO, "scripts", "pwm2iupac.py")]),
+            ("port", ["-m", "peng_motif_tpu_torch.pwm2iupac"])):
+        r = subprocess.run([sys.executable] + cmd + args, cwd=REPO,
+                           env=_env_cpu(), capture_output=True, text=True,
+                           timeout=120)
+        runs[label] = r
+    ref, port = runs["ref"], runs["port"]
+    assert (port.returncode, port.stdout) == (ref.returncode, ref.stdout)
+    if case in _SAME_STDERR:
+        assert port.stderr == ref.stderr
+    want_rc = {"bad_row": 1, "three_columns": 1, "bad_after_good": 1,
+               "missing": 1, "no_argument": 2}.get(case, 0)
+    assert ref.returncode == want_rc, ref.stderr
+    if case == "asn":
+        assert port.stdout == "ASN\n"
+    if case == "every_letter":
+        assert port.stdout == "ACGTSWRYMKN\n"
