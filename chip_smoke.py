@@ -496,6 +496,7 @@ def run_chain(inp, dev):
 
     from peng_motif_tpu_torch import engine
     from peng_motif_tpu_torch.ops import climb, em
+    from peng_motif_tpu_torch.utils.logging_utils import PhaseTimer
 
     dev = torch.device(dev)
 
@@ -514,11 +515,13 @@ def run_chain(inp, dev):
     sync()
     walls["stats"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    out["trace"] = climb.run_walks(
-        st["counts"], st["expected"], st["bgp"], inp["seeds"], *inp["walks"],
-        wide=inp["wide"])
+    with PhaseTimer().activate() as recorder:
+        out["trace"] = climb.run_walks(
+            st["counts"], st["expected"], st["bgp"], inp["seeds"],
+            *inp["walks"], wide=inp["wide"])
     walls["climb"] = time.perf_counter() - t0   # the trace fetch syncs
-    out["walk_stats"] = dict(climb.LAST_WALK_STATS)
+    out["walk_stats"] = dict(seeds=len(inp["seeds"]),
+                             steps=recorder.calls("step"))
     if inp["adv"] is not None:
         digit_mat, pseudo = inp["adv"]
         sync()
@@ -1518,6 +1521,7 @@ def run_hybrid_phase(tmp, large_fasta, dev, n_bases):
     from peng_motif_tpu_torch.ops import histogram as H
     from peng_motif_tpu_torch.ops import hybrid as hy
     from peng_motif_tpu_torch.parallel import sharded
+    from peng_motif_tpu_torch.utils.logging_utils import PhaseTimer
 
     rec = {"rates": {}, "ends": {}, "planned": {}, "launches": {}, "walls": {}}
     both, bg_order = True, 2
@@ -1552,10 +1556,10 @@ def run_hybrid_phase(tmp, large_fasta, dev, n_bases):
             return time.perf_counter() - t0
 
     def host_share_wall():
-        share = hy.start_host_share(sset.sequences, lengths, flat, 0, W, both,
-                                    bg_order)
-        share.join()
-        return share.seconds
+        with PhaseTimer().activate() as recorder:
+            hy.start_host_share(sset.sequences, lengths, flat, 0, W, both,
+                                bg_order).join()
+        return recorder.totals()["host_thread"][0]
 
     with phase("hybrid: the shares' rates, 51.2 Mbases"):
         # the two shares of a split, each alone and beside the other: why
@@ -1576,11 +1580,12 @@ def run_hybrid_phase(tmp, large_fasta, dev, n_bases):
             for _ in range(3):
                 # both shares over the whole corpus, side by side: each
                 # wall is taken under the other's load
-                share = hy.start_host_share(sset.sequences, lengths, flat, 0,
-                                            W, both, bg_order)
-                dev_s.append(device_share(sset.n, W))
-                share.join()
-                host_s.append(share.seconds)
+                with PhaseTimer().activate() as recorder:
+                    share = hy.start_host_share(sset.sequences, lengths,
+                                                flat, 0, W, both, bg_order)
+                    dev_s.append(device_share(sset.n, W))
+                    share.join()
+                host_s.append(recorder.totals()["host_thread"][0])
             d1 = n_bases / max(d_alone - lat, 1e-9)
             dc = n_bases / max(median(dev_s) - lat, 1e-9)
             hc, h1 = n_bases / median(host_s), n_bases / h_alone

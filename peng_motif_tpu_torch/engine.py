@@ -75,6 +75,7 @@ from .ops.stream_count import bg_offset, stream_fixup_pairs
 from .parallel.sharded import stream_count_sharded
 from .pattern_tables import Strand
 from .utils import numerics
+from .utils.logging_utils import span, sync_read, upload
 
 F32 = np.float32
 
@@ -131,8 +132,9 @@ def _fetch(out):
     (parallel/sharded.stream_count_sharded's ``out``): (vals int32, ltot,
     susp bool, bg int32 or None)."""
     _counts, vals, ltot, susp, bg = out
-    return (vals.cpu().numpy(), int(ltot), susp.cpu().numpy(),
-            None if bg is None else bg.cpu().numpy())
+    return (sync_read(vals).numpy(), sync_read(ltot, int),
+            sync_read(susp).numpy(),
+            None if bg is None else sync_read(bg).numpy())
 
 
 def _count_phase(peng, W: int, both: bool, device, mesh=None):
@@ -215,13 +217,17 @@ def _count_phase(peng, W: int, both: bool, device, mesh=None):
             # (models/background.py) over the sequences the device
             # counted, computed while the device count (every shard's)
             # is in flight
-            bg_corr = bg_device_corrections(
-                seqs_a, bgm.order, flat_codes=flat_a, lengths=lay.lengths)
-        vals, ltot, susp_np, bg_words = _fetch(out)
+            with span("bg_correct"):
+                bg_corr = bg_device_corrections(
+                    seqs_a, bgm.order, flat_codes=flat_a,
+                    lengths=lay.lengths)
+        with span("fetch"):
+            vals, ltot, susp_np, bg_words = _fetch(out)
     host_tab = bg_b = None
     if host_share is not None:
         # a failed host share raises here and fails the run
-        host_tab, ltot_b, bg_b = host_share.join()
+        with span("host_join"):
+            host_tab, ltot_b, bg_b = host_share.join()
         ltot += ltot_b
     if defer_bg:
         if ja > 0:
@@ -232,13 +238,14 @@ def _count_phase(peng, W: int, both: bool, device, mesh=None):
         # host-only count: the native scan is the table
         none = np.zeros(0, dtype=np.int32)
         return host_tab, ltot, host_tab, none, none, None
-    counts_host = _mirror_host(vals, W, both)
-    fix_ids, fix_dv, ltot_delta = stream_fixup_pairs(
-        stream, lay, susp_np, both)
-    ltot += ltot_delta
-    np.add.at(counts_host, fix_ids, fix_dv)
-    if host_tab is not None:
-        counts_host += host_tab
+    with span("fixup"):
+        counts_host = _mirror_host(vals, W, both)
+        fix_ids, fix_dv, ltot_delta = stream_fixup_pairs(
+            stream, lay, susp_np, both)
+        ltot += ltot_delta
+        np.add.at(counts_host, fix_ids, fix_dv)
+        if host_tab is not None:
+            counts_host += host_tab
     return counts_host, ltot, out[0], fix_ids, fix_dv, host_tab
 
 
@@ -271,15 +278,14 @@ def resident_state(counts, ltot: int, fix_ids, fix_dv,
     to its uint16 wire, which the port does not have)."""
     device = torch.device(device)
     return ResidentState(
-        host_add=None if host_add is None else torch.as_tensor(
-            host_add).to(device, torch.int32),
-        counts=torch.as_tensor(counts).to(device, torch.int32),
+        host_add=None if host_add is None else upload(
+            host_add, device, torch.int32),
+        counts=upload(counts, device, torch.int32),
         ltot=int(ltot),
-        fix_ids=torch.as_tensor(np.asarray(fix_ids)).to(device,
-                                                        torch.int64),
-        fix_dv=torch.as_tensor(np.asarray(fix_dv)).to(device, torch.int32),
-        v=tuple(torch.from_numpy(np.asarray(vk, dtype=np.float32)).to(
-            device) for vk in v))
+        fix_ids=upload(np.asarray(fix_ids), device, torch.int64),
+        fix_dv=upload(np.asarray(fix_dv), device, torch.int32),
+        v=tuple(upload(np.asarray(vk, dtype=np.float32), device)
+                for vk in v))
 
 
 def stats_program(state: ResidentState, length: int, order_k: int,
@@ -319,9 +325,9 @@ def _adv_sub_counts(digit_mat: torch.Tensor, counts_flat: torch.Tensor,
     if both:
         counts_c = torch.where(ft.canonical_mask(length, dev), counts_c,
                                torch.zeros((), dtype=agg, device=dev))
-    masks_tbl = torch.from_numpy(IUPAC_MASKS).to(dev, agg)
+    masks_tbl = upload(IUPAC_MASKS, dev, agg)
     half = length // 2
-    m = masks_tbl[digit_mat.to(dev, torch.int64)]             # [M, W, 4]
+    m = masks_tbl[upload(digit_mat, dev, torch.int64)]        # [M, W, 4]
     marg1 = ft.all_marginals(counts_c, m, length)              # [M, W, 4]
     if not both:
         return marg1
@@ -487,20 +493,23 @@ def process_gpu(peng, params) -> List[Motif]:
         # past 2**24 the f32 aggregation chains lose integer exactness;
         # the climb and adv-PWM switch to their f64 (wide) variants
         wide = ltot >= (1 << 24)
-        state = resident_state(counts_dev, ltot, fix_ids, fix_dv,
-                               peng.bg_model.v[: current_max_k + 1], device,
-                               host_add=host_add)
+        with span("upload"):
+            state = resident_state(counts_dev, ltot, fix_ids, fix_dv,
+                                   peng.bg_model.v[: current_max_k + 1],
+                                   device, host_add=host_add)
         # asynchronous on the card: it overlaps the host selection below
         st = stats_program(state, W, current_k, current_max_k, both)
 
         # (expected, zscores) with the reference's float promotion points
         # (reference: src/base_pattern.cpp:252-265)
-        bgp_host = _host_bg_flat(peng.bg_model.v, W, current_k, both)
-        expected_host, z_host = base_stats_native(counts_host, bgp_host, ltot)
-        selected = _select_seeds_host(
-            z_host, counts_host, W, params.zscore_threshold,
-            params.count_threshold, peng.strand == Strand.PLUS_STRAND,
-            params.filter_neighbors)
+        with span("seeds"):
+            bgp_host = _host_bg_flat(peng.bg_model.v, W, current_k, both)
+            expected_host, z_host = base_stats_native(counts_host, bgp_host,
+                                                      ltot)
+            selected = _select_seeds_host(
+                z_host, counts_host, W, params.zscore_threshold,
+                params.count_threshold, peng.strand == Strand.PLUS_STRAND,
+                params.filter_neighbors)
 
     if params.save_checkpoint:
         save_checkpoint(params.save_checkpoint, W, peng.strand.name,
@@ -536,14 +545,16 @@ def process_gpu(peng, params) -> List[Motif]:
         except ClimbOverflow as e:
             raise EngineFallback(str(e)) from e
     LAST_CLIMB_ENGINE = "device"
-    candidates = _replay_climb(peng, params, trace, selected, W)
+    with span("replay"):
+        candidates = _replay_climb(peng, params, trace, selected, W)
 
-    print(file=out)
-    peng._status("Filtering degenerated IUPAC patterns")
-    candidates = peng._filter_iupac_patterns(
-        W, params.minimum_processed_motifs, candidates)
-    for motif in candidates:
-        print(f"selected iupac pattern: {motif.iupac_string()}", file=out)
+        print(file=out)
+        peng._status("Filtering degenerated IUPAC patterns")
+        candidates = peng._filter_iupac_patterns(
+            W, params.minimum_processed_motifs, candidates)
+        for motif in candidates:
+            print(f"selected iupac pattern: {motif.iupac_string()}",
+                  file=out)
 
     # -- phases 3 + 4 head: PWMs + EM on the device, one fetch ------------
     peng._status("Calculating PWMs")
@@ -556,20 +567,23 @@ def process_gpu(peng, params) -> List[Motif]:
             if params.adv_pwm:
                 digit_mat = np.stack([
                     iupac_id_to_digits(m.pattern_id, W) for m in candidates])
-                pwm0 = adv_pwm_program(
-                    torch.from_numpy(digit_mat), st["counts"],
-                    state.v[0], params.pseudo_counts, W, both, wide=wide)
+                with span("adv"):
+                    pwm0 = adv_pwm_program(
+                        torch.from_numpy(digit_mat), st["counts"],
+                        state.v[0], params.pseudo_counts, W, both, wide=wide)
             else:
-                pwm0 = torch.from_numpy(np.stack(
-                    [default_pwm(peng, params, m, W) for m in candidates]
-                )).to(device)
+                pwm0 = upload(np.stack(
+                    [default_pwm(peng, params, m, W) for m in candidates]),
+                    device)
             if params.use_em:
                 final, _iters = em_optimize_flat(
                     pwm0, st["counts"], st["bg_max"],
                     params.em_saturation_factor, params.em_min_threshold,
                     params.em_max_iterations, W)
-                final_pwms = final.cpu().numpy()
-            pwm0_np = pwm0.cpu().numpy()
+            with span("fetch"):
+                if params.use_em:
+                    final_pwms = sync_read(final).numpy()
+                pwm0_np = sync_read(pwm0).numpy()
             for i, motif in enumerate(candidates):
                 motif.pwm = np.array(pwm0_np[i], dtype=F32)
                 motif.calculate_comp_pwm()
@@ -593,9 +607,10 @@ def process_gpu(peng, params) -> List[Motif]:
             optimized = candidates
         if params.use_merging:
             if W >= MIN_MERGE_OVERLAP:
-                peng._merge_patterns(
-                    W, params.bit_factor_merge_threshold, optimized,
-                    params.max_merged_length)
+                with span("merge"):
+                    peng._merge_patterns(
+                        W, params.bit_factor_merge_threshold, optimized,
+                        params.max_merged_length)
             else:
                 print(f"Warning: Specified pattern length ({W}) is too "
                       "low for merging!", file=sys.stderr)

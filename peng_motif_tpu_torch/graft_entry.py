@@ -18,6 +18,7 @@ import torch
 from .device import resolve_device
 from .ops import bgprobs, counting, encoding, stats
 from .parallel.dryrun import dryrun_multichip
+from .utils.logging_utils import upload
 
 __all__ = ["dryrun_multichip", "entry"]
 
@@ -28,8 +29,7 @@ def _forward(codes, v0, v1, v2, length: int = 6, device=None):
     Inputs: numpy arrays or tensors.  Nothing between the upload and the
     returned tensor waits for the device."""
     dev = resolve_device("cuda" if device is None else device)
-    codes, v0, v1, v2 = (torch.as_tensor(a).to(dev)
-                         for a in (codes, v0, v1, v2))
+    codes, v0, v1, v2 = (upload(a, dev) for a in (codes, v0, v1, v2))
     counts, ltot = counting.count_patterns_device(codes, length, True)
     bg = bgprobs.bg_prob_table([v0, v1, v2], length, 2)
     bg = bgprobs.aggregate_double_strand(bg)

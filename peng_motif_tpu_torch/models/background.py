@@ -28,6 +28,8 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from ..utils.logging_utils import span, start_thread
+
 
 class BackgroundModel:
     """Interpolated Markov background model (reference: BackgroundModel.cpp)."""
@@ -83,16 +85,13 @@ class BackgroundModel:
                 self._n = self._v = None
                 self._defer_sequences = sequences
             elif lazy:
-                import threading  # noqa: PLC0415
-
                 self._n = self._v = None
 
                 def _run():
                     self._n = count_kmers(sequences, order)
                     self._v = self._calculate_v()
 
-                self._count_thread = threading.Thread(target=_run, daemon=True)
-                self._count_thread.start()
+                self._count_thread = start_thread("bg_scan", _run)
             else:
                 self._n = count_kmers(sequences, order)
                 self._v = self._calculate_v()
@@ -119,25 +118,25 @@ class BackgroundModel:
             return
         sequences, order = self._defer_sequences, self.order
         self._defer_sequences = None
-        import threading  # noqa: PLC0415
 
         def _run():
             self._n = count_kmers(sequences, order)
             self._v = self._calculate_v()
 
-        self._count_thread = threading.Thread(target=_run, daemon=True)
-        self._count_thread.start()
+        self._count_thread = start_thread("bg_scan", _run)
 
     def _join(self):
         if self._count_thread is not None:
-            self._count_thread.join()
+            with span("bg_wait"):
+                self._count_thread.join()
             self._count_thread = None
         elif self.deferred:
             # accessed before the engine delivered: count synchronously
             sequences = self._defer_sequences
             self._defer_sequences = None
-            self._n = count_kmers(sequences, self.order)
-            self._v = self._calculate_v()
+            with span("bg_scan"):
+                self._n = count_kmers(sequences, self.order)
+                self._v = self._calculate_v()
 
     @property
     def n(self) -> Optional[List[np.ndarray]]:

@@ -22,6 +22,8 @@ from typing import List, Sequence
 
 import numpy as np
 
+from ..utils.logging_utils import span
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
 _SRC = os.path.join(_PKG, "csrc", "pengnative.cpp")
@@ -144,7 +146,9 @@ def get_lib() -> ctypes.CDLL:
     """Load the native library, building it first if needed.  Raises
     RuntimeError (build) or OSError (load) on failure."""
     global _lib
-    with _lock:
+    if _lib is not None:
+        return _lib
+    with _lock, span("lib.native"):
         if _lib is None:
             # -ffp-contract=off is parity-critical: FMA contraction would
             # change float rounding vs the reference binary.  -march=native

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from . import encoding
+from ..utils.logging_utils import sync_read, upload
 from .histogram import histogram
 
 
@@ -228,7 +229,7 @@ class CountJob:
             return
         buf = torch.from_numpy(pack_codes_fused_native(self._codes_np))
         self._vals, self._ltot, self._susp = _count_device_packed(
-            buf.to(device), self._seq_len, length, both_strands)
+            upload(buf, device), self._seq_len, length, both_strands)
 
     def finish(self):
         """(counts_np int32 [4**W], ltot int) with exact non-overlap
@@ -240,9 +241,9 @@ class CountJob:
             return self._host_result[0]
         if self._empty:
             return np.zeros(4 ** self._length, dtype=np.int32), 0
-        vals = self._vals.cpu().numpy()
-        ltot = int(self._ltot)
-        susp_np = self._susp.cpu().numpy()
+        vals = sync_read(self._vals).numpy()
+        ltot = sync_read(self._ltot, int)
+        susp_np = sync_read(self._susp).numpy()
         if self._both:
             counts_np = mirror_canonical_native(vals, self._length)
         else:
@@ -289,14 +290,13 @@ def count_patterns(codes, length: int, both_strands: bool = True):
         return torch.zeros(4 ** length, dtype=torch.int32,
                            device=codes.device), 0
     counts, ltot, suspicious = _count_device(codes, length, both_strands)
-    susp_np = suspicious.cpu().numpy()
+    susp_np = sync_read(suspicious).numpy()
     if susp_np.any():
-        counts_np = counts.cpu().numpy().astype(np.int64)
-        apply_dedup_fixup(counts_np, codes.cpu().numpy(), susp_np, length,
-                          both_strands)
-        counts = torch.from_numpy(counts_np.astype(np.int32)).to(
-            codes.device)
-    return counts, int(ltot)
+        counts_np = sync_read(counts).numpy().astype(np.int64)
+        apply_dedup_fixup(counts_np, sync_read(codes).numpy(), susp_np,
+                          length, both_strands)
+        counts = upload(counts_np.astype(np.int32), codes.device)
+    return counts, sync_read(ltot, int)
 
 
 def apply_dedup_fixup(counts_np: np.ndarray, codes, susp_np: np.ndarray,

@@ -24,6 +24,8 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.logging_utils import upload
+
 
 @functools.lru_cache(maxsize=None)
 def _np_rc_ids(length: int) -> np.ndarray:
@@ -48,17 +50,17 @@ def _np_canonical_idx(length: int) -> np.ndarray:
 
 def rc_ids_flat(length: int, device) -> torch.Tensor:
     """Flat [4**W] int64 tensor of reverse-complement ids (gather index)."""
-    return torch.from_numpy(_np_rc_ids(length)).to(device, torch.int64)
+    return upload(_np_rc_ids(length), device, torch.int64)
 
 
 def canonical_mask_flat(length: int, device) -> torch.Tensor:
     """Flat [4**W] bool mask: id <= revcomp(id)."""
-    return torch.from_numpy(_np_canonical_mask(length)).to(device)
+    return upload(_np_canonical_mask(length), device)
 
 
 def canonical_idx_flat(length: int, device) -> torch.Tensor:
     """Ascending ids with id <= revcomp(id), [(4**W + pal)/2] int64."""
-    return torch.from_numpy(_np_canonical_idx(length)).to(device, torch.int64)
+    return upload(_np_canonical_idx(length), device, torch.int64)
 
 
 # ---------------------------------------------------------------------------

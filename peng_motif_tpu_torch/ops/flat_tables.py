@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from . import encoding
+from ..utils.logging_utils import upload
 
 F32 = torch.float32
 F64 = torch.float64
@@ -187,7 +188,7 @@ def bg_prob_flat(v: Sequence[torch.Tensor], length: int,
         # factor for position pos depends on the contiguous digit block
         # pos-k_eff..pos: broadcast the permuted conditional over
         # (hi, 4**(k_eff+1), lo)
-        perm = torch.from_numpy(_rev4_perm(k_eff)).to(dev)
+        perm = upload(_rev4_perm(k_eff), dev)
         vk = v[k_eff].to(F32)[perm]
         lo = 4 ** (pos - k_eff)
         blk = 4 ** (k_eff + 1)
@@ -229,7 +230,7 @@ def _f64(x):
 
 def _scalar_f32(x, like: torch.Tensor) -> torch.Tensor:
     """A 0-dim f32 tensor on ``like``'s device (n_sequences, pseudo)."""
-    return torch.as_tensor(x).to(device=like.device, dtype=F32)
+    return upload(x, like.device, F32)
 
 
 def _entropy_f(p32):

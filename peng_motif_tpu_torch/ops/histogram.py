@@ -34,6 +34,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..native import BUILD_DIR, compile_library
+from ..utils.logging_utils import span
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc", "histogram.cu")
@@ -119,7 +120,9 @@ def build_kernels() -> ctypes.CDLL:
     ``BUILD_LOG`` keeps the compiler's report (registers, shared memory,
     spills from ``-Xptxas -v``) of the build this process ran."""
     global _lib, BUILD_LOG
-    with _lock:
+    if _lib is not None:
+        return _lib
+    with _lock, span("lib.histogram"):
         if _lib is None:
             log = compile_library(_SRC, _SO, [
                 _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",

@@ -43,13 +43,13 @@ from __future__ import annotations
 
 import os
 import threading
-import time
 from typing import Optional, Sequence
 
 import numpy as np
 
 from ..models.background import count_kmers
 from ..native import count_rows_exact_native
+from ..utils.logging_utils import start_thread
 
 __all__ = [
     "HostShare",
@@ -178,18 +178,18 @@ def _host_rows(sequences: Sequence[np.ndarray], lengths: np.ndarray,
 
 
 class HostShare:
-    """Handle on the host share's scan thread."""
+    """Handle on the host share's scan thread (its wall is the span
+    ``host_thread`` of the job's recorder)."""
 
     def __init__(self, thread: threading.Thread, box: list):
         self._thread = thread
         self._box = box
-        self.seconds = None  # the scan's wall, once join() has returned
 
     def join(self):
         """(table int32 [4**W] mirrored, ltot, bg counts list | None);
         raises what the scan thread raised."""
         self._thread.join()
-        result, self.seconds = self._box
+        result = self._box[0]
         if isinstance(result, BaseException):
             raise result
         return result
@@ -210,10 +210,9 @@ def start_host_share(
     join() after the device share's fetch."""
     seqs = list(sequences)
     lens = np.asarray(lengths, dtype=np.int64)
-    box: list = [None, None]
+    box: list = [None]
 
     def _run():
-        t0 = time.perf_counter()
         try:
             rows = _host_rows(seqs, lens, flat, off)
             table, ltot = count_rows_exact_native(rows, W, both_strands)
@@ -221,8 +220,5 @@ def start_host_share(
             box[0] = (table, int(ltot), bg)
         except BaseException as e:  # noqa: BLE001 - rethrown in join()
             box[0] = e
-        box[1] = time.perf_counter() - t0
 
-    t = threading.Thread(target=_run, daemon=True)
-    t.start()
-    return HostShare(t, box)
+    return HostShare(start_thread("host_thread", _run), box)

@@ -19,6 +19,8 @@ import math
 
 import torch
 
+from ..utils.logging_utils import upload
+
 F32 = torch.float32
 
 
@@ -27,7 +29,7 @@ def expected_counts(bg_prob: torch.Tensor, ltot) -> torch.Tensor:
     src/base_pattern.cpp:260-265; the reference converts the size_t
     window count to float too).  ``ltot``: a number or a 0-d tensor on
     the table's device (no host sync)."""
-    return bg_prob * torch.as_tensor(ltot, device=bg_prob.device).to(F32)
+    return bg_prob * upload(ltot, bg_prob.device).to(F32)
 
 
 def zscores(counts: torch.Tensor, expected: torch.Tensor) -> torch.Tensor:
@@ -53,7 +55,7 @@ def log_pvalues(counts: torch.Tensor, expected: torch.Tensor) -> torch.Tensor:
     mu = expected
     frac = 1.0 - mu / (n + 1.0)
     # 6.283 rounded to f32 once, as the reference's f32 literal is
-    two_pi = torch.tensor(6.283, dtype=F32, device=n.device)
+    two_pi = upload(6.283, n.device, F32)
     body = n * torch.log(mu / n) + n - mu - 0.5 * torch.log(
         two_pi * n * frac * frac)
     zero = torch.zeros((), dtype=F32, device=n.device)

@@ -50,7 +50,7 @@ from ..ops.stream_count import (
     stream_compact,
     stream_fixup_pairs,
 )
-from ..utils.logging_utils import get_logger
+from ..utils.logging_utils import get_logger, sync_read, upload
 from .mesh import Mesh, make_data_mesh
 from .sharded import shard_layout, stream_counts_over_mesh
 
@@ -152,9 +152,17 @@ def shutdown_multihost() -> None:
         dist.destroy_process_group()
 
 
+def _move(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` on ``device``, a copy to or from the host counted as the
+    recorder's helpers count it."""
+    if t.device.type != "cpu" and device.type == "cpu":
+        return sync_read(t)
+    return upload(t, device)
+
+
 def _all_reduce_sum(ctx: MultihostContext, t: torch.Tensor) -> torch.Tensor:
     """Sum of ``t`` over the processes, on ``ctx.device`` (1-D)."""
-    t = t.to(ctx.device).reshape(-1).contiguous()
+    t = _move(t, ctx.device).reshape(-1).contiguous()
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=ctx.group)
     return t
 
@@ -166,7 +174,7 @@ def _all_gather_blocks(ctx: MultihostContext, t: torch.Tensor, per: int
     the largest, since a gather takes equal sizes."""
     widest = max(ctx.shards) * per
     mine = torch.zeros(widest, dtype=torch.uint8, device=ctx.device)
-    mine[: t.numel()] = t.to(ctx.device)
+    mine[: t.numel()] = _move(t, ctx.device)
     blocks = [torch.empty_like(mine) for _ in range(ctx.world)]
     dist.all_gather(blocks, mine, group=ctx.group)
     return torch.cat([b[: n * per] for b, n in zip(blocks, ctx.shards)])
@@ -248,7 +256,7 @@ def multihost_stream_counts(ctx: MultihostContext,
     tiers = {t: n - tiers[t] for t, n in hist.TIER_LAUNCHES.items()}
 
     counts = _all_reduce_sum(ctx, counts)
-    ltot = int(_all_reduce_sum(ctx, ltot))
+    ltot = sync_read(_all_reduce_sum(ctx, ltot), int)
     susp = _all_gather_blocks(ctx, susp.to(torch.uint8), per)
     get_logger().info(
         f"multi-process count: rank {ctx.rank} of {ctx.world} counted chunk "
@@ -259,9 +267,9 @@ def multihost_stream_counts(ctx: MultihostContext,
         # worker: collectives done; the table and fix-up are process 0's
         return None, ltot
 
-    counts_np = stream_compact(counts, length, both)[0].cpu().numpy()
+    counts_np = sync_read(stream_compact(counts, length, both)[0]).numpy()
     ids, dvs, ltot_delta = stream_fixup_pairs(
-        stream, lay, susp.cpu().numpy().astype(bool), both)
+        stream, lay, sync_read(susp).numpy().astype(bool), both)
     np.add.at(counts_np, ids, dvs)
     return counts_np, ltot + ltot_delta
 
@@ -284,7 +292,7 @@ def multihost_bg_counts(ctx: MultihostContext,
         shard = list(sequences[lo_s:hi_s])
     flat = np.concatenate([c.astype(np.int64)
                            for c in count_kmers(shard, order)])
-    out = _all_reduce_sum(ctx, torch.from_numpy(flat)).cpu().numpy()
+    out = sync_read(_all_reduce_sum(ctx, torch.from_numpy(flat))).numpy()
     res, off = [], 0
     for k in range(order + 1):
         width = 4 ** (k + 1)

@@ -61,6 +61,7 @@ from ..ops.stream_count import (
     stream_shard_counts,
     wire2_eligible,
 )
+from ..utils.logging_utils import span, sync_read, upload
 from .mesh import Mesh
 
 
@@ -76,7 +77,7 @@ def _pad_batch(codes: np.ndarray, n_shards: int) -> np.ndarray:
 
 def _upload(rows: np.ndarray, i: int, per: int, device) -> torch.Tensor:
     """Rows [i * per, (i + 1) * per) of a host array, on ``device``."""
-    return torch.from_numpy(rows[i * per : (i + 1) * per]).to(device)
+    return upload(rows[i * per : (i + 1) * per], device)
 
 
 def _sum_on_first(parts: List[torch.Tensor], mesh: Mesh) -> torch.Tensor:
@@ -145,20 +146,24 @@ def stream_count_sharded(sequences, length: int, both_strands: bool,
     None), before the host fix-up (ops/stream_count.stream_fixup_pairs);
     ``layout.m_pad`` is the padded global chunk axis that ``suspicious``
     indexes."""
-    stream, lay = build_stream(sequences, length, flat_codes=flat_codes)
-    per, lay = shard_layout(lay, len(mesh))
-    if n_undefined is None and flat_codes is not None:
-        n_undefined = int(np.count_nonzero(flat_codes == 0))
-    if n_undefined is not None and wire2_eligible(lay, n_undefined):
-        rows = chunked_packed2(stream, lay).reshape(-1, row_nbytes2(lay.row))
-        meta = (int(lay.lengths[0]), int(lay.stream_len))
-    else:
-        rows = chunked_packed(stream, lay).reshape(-1, row_nbytes(lay.row))
-        meta = None
-    counts, ltot, susp, bg = stream_counts_over_mesh(
-        rows, meta, lay.row, lay.ctx, length, both_strands, bg_order, mesh,
-        per)
-    counts, vals = stream_compact(counts, length, both_strands)
+    with span("stream"):
+        stream, lay = build_stream(sequences, length, flat_codes=flat_codes)
+        per, lay = shard_layout(lay, len(mesh))
+        if n_undefined is None and flat_codes is not None:
+            n_undefined = int(np.count_nonzero(flat_codes == 0))
+        if n_undefined is not None and wire2_eligible(lay, n_undefined):
+            rows = chunked_packed2(stream, lay).reshape(
+                -1, row_nbytes2(lay.row))
+            meta = (int(lay.lengths[0]), int(lay.stream_len))
+        else:
+            rows = chunked_packed(stream, lay).reshape(
+                -1, row_nbytes(lay.row))
+            meta = None
+    with span("enqueue"):
+        counts, ltot, susp, bg = stream_counts_over_mesh(
+            rows, meta, lay.row, lay.ctx, length, both_strands, bg_order,
+            mesh, per)
+        counts, vals = stream_compact(counts, length, both_strands)
     return stream, lay, (counts, vals, ltot, susp, bg)
 
 
@@ -211,16 +216,16 @@ def count_patterns_sharded(codes: np.ndarray, length: int,
         codes, length, both_strands, mesh)
     if both_strands:
         vals = counts[encoding.canonical_idx_flat(length, counts.device)]
-        counts_np = mirror_canonical_native(vals.cpu().numpy(), length)
+        counts_np = mirror_canonical_native(sync_read(vals).numpy(), length)
     else:
-        counts_np = counts.cpu().numpy()
-    susp_np = susp.cpu().numpy()
+        counts_np = sync_read(counts).numpy()
+    susp_np = sync_read(susp).numpy()
     if susp_np.any():
         counts64 = counts_np.astype(np.int64)
         _apply_fixup_rows(counts64, codes[np.flatnonzero(susp_np)], length,
                           both_strands)
         counts_np = counts64.astype(np.int32)
-    return counts_np, int(ltot)
+    return counts_np, sync_read(ltot, int)
 
 
 def count_device_full_sharded(codes: np.ndarray, length: int,
@@ -272,8 +277,8 @@ def count_bg_kmers_sharded(codes: np.ndarray, order: int, mesh: Mesh,
             tabs.append(histogram(y.reshape(-1), ok.reshape(-1),
                                   4 ** (k + 1)))
         parts.append(tabs)
-    return [_sum_on_first([tabs[k] for tabs in parts], mesh)
-            .cpu().numpy().astype(np.int64) for k in range(order + 1)]
+    return [sync_read(_sum_on_first([tabs[k] for tabs in parts], mesh))
+            .numpy().astype(np.int64) for k in range(order + 1)]
 
 
 def _bg_window_values(codes: torch.Tensor, k: int):

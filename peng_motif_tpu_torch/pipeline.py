@@ -121,6 +121,7 @@ class Peng:
         sequence_set,
         bg_model: BackgroundModel,
         stdout=None,
+        timer: Optional[PhaseTimer] = None,
     ):
         self.strand = strand
         self.k = k
@@ -132,7 +133,8 @@ class Peng:
         # resolve at call time so redirect_stdout works
         self.out = stdout if stdout is not None else sys.stdout
         self.log = get_logger()
-        self.timer = PhaseTimer()
+        # the job's recorder (cli.main's), or one of this pipeline's own
+        self.timer = timer if timer is not None else PhaseTimer()
 
     @property
     def iupac_profile(self):
@@ -167,7 +169,8 @@ class Peng:
                 # a deferred background model (the fused device count
                 # never delivered) starts its threaded host scan now, so
                 # it overlaps the exact engine's count
-                self.bg_model.start_host_counting()
+                with self.timer.span("fallback"):
+                    self.bg_model.start_host_counting()
             finally:
                 self.out = real_out
         result = self._process_exact(params)

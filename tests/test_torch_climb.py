@@ -18,6 +18,7 @@ import torch
 
 from peng_motif_tpu.ops import climb as jcl
 from peng_motif_tpu_torch.ops import climb as tcl
+from peng_motif_tpu_torch.utils.logging_utils import PhaseTimer
 
 INT_KEYS = ("improved", "chosen_idx", "acc_idx", "acc_n", "chosen_counts",
             "acc_counts", "init_counts")
@@ -119,12 +120,13 @@ def test_replay_outcomes_match_reference(both, score_type):
     j_trace = jcl.run_walks(
         jnp.asarray(counts), jnp.asarray(expected), jnp.asarray(bgp), seeds,
         W, both, score_type, n_seq, n_seq // 200, max_seeds=len(seeds))
-    t_trace = tcl.run_walks(
-        torch.from_numpy(counts), torch.from_numpy(expected),
-        torch.from_numpy(bgp), seeds, W, both, score_type, n_seq,
-        n_seq // 200)
-    assert tcl.LAST_WALK_STATS["seeds"] == len(seeds)
-    assert tcl.LAST_WALK_STATS["steps"] == t_trace.n_steps
+    with PhaseTimer().activate() as recorder:
+        t_trace = tcl.run_walks(
+            torch.from_numpy(counts), torch.from_numpy(expected),
+            torch.from_numpy(bgp), seeds, W, both, score_type, n_seq,
+            n_seq // 200)
+    assert t_trace.improved.shape[1] == len(seeds)
+    assert recorder.calls("step") == t_trace.n_steps
     j_out = jcl.replay_walks(j_trace, seeds, W)
     t_out = tcl.replay_walks(t_trace, seeds, W)
     assert len(j_out) == len(t_out) == len(seeds)

@@ -23,14 +23,22 @@ absolute + 1e-6 relative; 2e-5 for the merge-heavy mafk_w8_rich); the
 device engine against the exact engine on a 20-Mbase corpus with every
 non-float token equal and floats within 1e-4 + 1e-5 relative; the
 co-count's output byte-identical under every device share; entry()'s
-z-scores within 1e-6 of the CPU's.
+z-scores within 1e-6 of the CPU's.  The recorder's counters
+(utils/logging_utils) on the benchmark cells' jobs: ``syncs`` equal to
+the warnings of torch's sync debug mode, ``h2d.copies`` and
+``h2d.bytes`` to the host-to-device copies of the device trace, exactly.
 
 The co-count (ops/hybrid.py) is pinned to the pure device count
 (PENG_HYBRID_DEVICE_FRAC=1) for every test that does not name a share of
 its own: these tests hold the kernel on the whole input.
 """
 
+import collections
+import contextlib
+import io
+import json
 import os
+import warnings
 
 import numpy as np
 import pytest
@@ -674,6 +682,105 @@ def test_em_on_card_matches_cpu(W, cuda):
     np.testing.assert_array_equal(outs[str(cuda)][1], outs["cpu"][1])
     np.testing.assert_allclose(outs[str(cuda)][0], outs["cpu"][0], rtol=0,
                                atol=5e-6)
+
+
+# -- the recorder's counters against the card's own account ----------------
+
+# the benchmark cells' jobs (bench_port/traffic): MafK at -w 10 on the
+# device engine, and -w 12 on it with the planner's host count
+CELL_JOBS = {"w10": ["-w", "10"], "w12_tpu": ["-w", "12", "--engine", "tpu"]}
+
+
+def _cell_job(name, tmp_path, *extra):
+    """One MafK job of a cell's flags with --timing: its [COUNT] lines."""
+    argv = [os.path.join(GOLDEN_DIR, "MafK.fasta"), *CELL_JOBS[name],
+            "--timing", "-o", str(tmp_path / "o.meme"), *extra]
+    err = io.StringIO()
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(err):
+        assert main(argv) == 0
+    counters = {}
+    for line in err.getvalue().splitlines():
+        if line.startswith("[COUNT] "):
+            key, value = line[8:].split(": ")
+            counters[key] = int(value)
+    return counters
+
+
+@pytest.fixture
+def planner_share(monkeypatch):
+    """The co-count as the cells run it: the planner's share."""
+    monkeypatch.delenv("PENG_HYBRID_DEVICE_FRAC")
+
+
+@pytest.mark.parametrize("name", sorted(CELL_JOBS))
+def test_syncs_are_the_sync_debug_warnings(name, cuda, planner_share,
+                                           tmp_path):
+    """Every point where the host waits for the card passes through the
+    recorder's helpers: ``syncs`` equals the warnings of torch's sync
+    debug mode over a warm job."""
+    _cell_job(name, tmp_path)                 # builds, caches
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            counters = _cell_job(name, tmp_path)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # torch's own first call also warns that the mode is a prototype
+    syncs = [w for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    sites = collections.Counter(
+        f"{os.path.basename(w.filename)}:{w.lineno}" for w in syncs)
+    assert counters["syncs"] == len(syncs), sites
+
+
+@pytest.mark.parametrize("name", sorted(CELL_JOBS))
+def test_h2d_counters_are_the_traced_copies(name, cuda, planner_share,
+                                            tmp_path):
+    """``h2d.copies`` and ``h2d.bytes`` equal the host-to-device copies
+    of the job's device trace (--profile), in number and in bytes.  The
+    profiler at times loses the device records of a job's first copies
+    and kernels (the job's runtime calls are all there; seen with the
+    profile at the phases alone too), so a trace may hold fewer copies,
+    never more: up to four profiled jobs, one of them exact."""
+    _cell_job(name, tmp_path)
+    seen = []
+    for k in range(4):
+        counters = _cell_job(name, tmp_path, "--profile",
+                             str(tmp_path / f"p{k}"))
+        with open(tmp_path / f"p{k}" / "trace.json") as f:
+            events = json.load(f)["traceEvents"]
+        h2d = [e for e in events if e.get("cat") == "gpu_memcpy"
+               and "HtoD" in e.get("name", "")]
+        got = (len(h2d), sum(e["args"]["bytes"] for e in h2d))
+        want = (counters["h2d.copies"], counters["h2d.bytes"])
+        assert got[0] <= want[0] and got[1] <= want[1], (got, want)
+        seen.append(got)
+        if got == want:
+            return
+    pytest.fail(f"no trace held all {want} copies/bytes: {seen}")
+
+
+def test_worker_spans_lie_in_their_parent_in_the_trace(cuda, planner_share,
+                                                       tmp_path):
+    """At -w 12 the planner counts on a host thread: its span
+    count.host_thread reaches the --profile trace inside the interval
+    of the main thread's range "count"."""
+    _cell_job("w12_tpu", tmp_path)
+    _cell_job("w12_tpu", tmp_path, "--profile", str(tmp_path / "p"))
+    with open(tmp_path / "p" / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+
+    def ranges(name):               # host ranges (not their device copies)
+        return [(e["ts"], e["ts"] + e["dur"]) for e in events
+                if e.get("name") == name and e.get("ph") == "X"
+                and e.get("cat") == "user_annotation"]
+
+    (count,) = ranges("count")
+    (thread,) = ranges("count.host_thread")
+    slack = 50.0                  # us: the anchor's read of two clocks
+    assert count[0] - slack <= thread[0] < thread[1] <= count[1] + slack
 
 
 # -- several cards: the mesh, the kernel on cuda:k, NCCL between cards ------

@@ -30,6 +30,7 @@ from peng_motif_tpu_torch.models.background import count_kmers
 from peng_motif_tpu_torch.native import count_rows_exact_native
 from peng_motif_tpu_torch.ops import histogram as th
 from peng_motif_tpu_torch.ops import hybrid as hy
+from peng_motif_tpu_torch.utils.logging_utils import PhaseTimer
 
 RATES = {"PENG_WIRE_BASES_S": "8e8", "PENG_HOST_SCAN_BASES_S": "2e8",
          "PENG_DEVICE_LATENCY_S": "0.02"}
@@ -200,10 +201,13 @@ def test_host_share_counts_match_full_scan():
     ja, off = hy.split_index(lens, 0.5)
     a_tab, a_ltot = count_rows_exact_native(
         hy._host_rows(seqs[:ja], lens[:ja], flat[:off], 0), 6, True)
-    share = hy.start_host_share(seqs[ja:], lens[ja:], flat, off, 6, True,
-                                bg_order=2)
-    b_tab, b_ltot, bg_b = share.join()
-    assert share.seconds > 0
+    with PhaseTimer().activate() as recorder:
+        share = hy.start_host_share(seqs[ja:], lens[ja:], flat, off, 6,
+                                    True, bg_order=2)
+        b_tab, b_ltot, bg_b = share.join()
+    # the share's own thread is timed as the recorder's span host_thread
+    (thread_span,) = [s for s in recorder.spans if s.path == "host_thread"]
+    assert thread_span.end_ns > thread_span.start_ns
     np.testing.assert_array_equal(a_tab + b_tab, full_tab)
     assert a_ltot + b_ltot == full_ltot
     bg_full = count_kmers(seqs, 2)
