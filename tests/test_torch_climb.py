@@ -111,6 +111,27 @@ def test_walks_program_matches_reference(W, both, score_type, wide):
 
 @pytest.mark.parametrize("score_type", [0, 2])
 @pytest.mark.parametrize("both", [True, False], ids=["both", "plus"])
+@pytest.mark.parametrize("W", [4, 8])
+def test_walks_on_cpu_take_no_graph(W, both, score_type):
+    """Off CUDA the step runs as it is, every step: the climb's counter
+    climb.graph_steps reads 0, a span a step, and the trace is the
+    reference's (the CUDA graph's replay is held against this eager
+    step on the card, tests/test_torch_gpu.py)."""
+    def step():
+        pass
+
+    assert tcl._lockstep(step, torch.device("cpu")) is step
+    inp = walk_inputs(W, seed=W * 10 + score_type)
+    want = _jax_walks(inp, W, both, score_type, False)
+    with PhaseTimer().activate() as recorder:
+        got = _torch_walks(inp, W, both, score_type, False)
+    assert recorder.counters["climb.graph_steps"] == 0
+    assert recorder.calls("step") == int(got["n_steps"]) >= 2
+    assert_traces_match(got, want)
+
+
+@pytest.mark.parametrize("score_type", [0, 2])
+@pytest.mark.parametrize("both", [True, False], ids=["both", "plus"])
 def test_replay_outcomes_match_reference(both, score_type):
     W = 8
     counts, expected, bgp, seeds, n_seq = walk_inputs(W, seed=3,

@@ -58,6 +58,7 @@ from peng_motif_tpu_torch.models import background as tbg
 from peng_motif_tpu_torch.parallel import multihost as tmh
 from peng_motif_tpu_torch.parallel import sharded as tsh
 from peng_motif_tpu_torch.parallel.mesh import make_data_mesh
+from peng_motif_tpu_torch.utils.logging_utils import PhaseTimer
 
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "golden")
@@ -637,6 +638,84 @@ def test_walks_on_card_match_cpu(both, score_type, wide, cuda):
     for k in ("chosen_score", "acc_score", "init_score"):
         np.testing.assert_allclose(got[k], want[k], rtol=2e-6, atol=2e-5,
                                    err_msg=k)
+
+
+def _mafk_walk_args(argv, tmp_path):
+    """The device engine's run_walks call of one MafK job: (args,
+    kwargs)."""
+    calls = []
+    real = engine.run_walks
+
+    def run_walks(*a, **k):
+        calls.append((a, k))
+        return real(*a, **k)
+
+    argv = [os.path.join(GOLDEN_DIR, "MafK.fasta"), *argv, "--engine", "tpu",
+            "-o", str(tmp_path / "o.meme")]
+    with pytest.MonkeyPatch.context() as m, \
+            contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        m.setattr(engine, "run_walks", run_walks)
+        assert main(argv) == 0
+    (call,) = calls
+    return call
+
+
+@pytest.mark.parametrize("score", ["MUTUAL_INFO", "LOGPVAL"])
+@pytest.mark.parametrize("strand", ["BOTH", "PLUS"])
+@pytest.mark.parametrize("W", [8, 10, 12])
+def test_climb_graph_is_the_eager_step(W, strand, score, cuda, tmp_path,
+                                       monkeypatch):
+    """The climb on the card replays its step from one CUDA graph
+    (ops/climb._lockstep): on a MafK job's own tables and seeds, its
+    trace is the eager step's bit for bit, and every step but the first
+    is a replay."""
+    (counts, expected, bgp, seeds, length, both, st, n_seq, pseudo), kw = \
+        _mafk_walk_args(["-w", str(W), "--strand", strand,
+                         "--optimization_score", score], tmp_path)
+    assert counts.device.type == "cuda"
+    ids = torch.as_tensor(np.asarray(seeds, np.int32), device=counts.device)
+
+    def walks():
+        with PhaseTimer().activate() as recorder:
+            out = tcl.walks_program(counts, expected, bgp, ids,
+                                    np.float32(n_seq), np.float32(pseudo),
+                                    length, both, st, **kw)
+        return out, recorder.counters["climb.graph_steps"]
+
+    graph, replays = walks()
+    monkeypatch.setattr(tcl, "_lockstep", lambda step, dev: step)
+    eager, eager_replays = walks()
+    assert graph["n_steps"] == eager["n_steps"] >= 2
+    assert replays == graph["n_steps"] - 1 and eager_replays == 0
+    assert graph.keys() == eager.keys()
+    for k, x in graph.items():
+        if torch.is_tensor(x):
+            assert torch.equal(x, eager[k]), k
+
+
+def test_climb_graph_beside_a_nccl_group(cuda, tmp_path):
+    """The climb captures its graph while a NCCL process group lives in
+    the process (its watchdog thread polls the card): the job's output
+    is the job's without the group, and every step but the first is a
+    replay."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    plain = _cell_job("w10", tmp_path)
+    plain_meme = (tmp_path / "o.meme").read_bytes()
+    tmh.init_multihost(f"localhost:{port}", 1, 0, timeout_s=120,
+                       device=cuda)
+    try:
+        x = torch.ones(8, device=cuda)
+        torch.distributed.all_reduce(x)
+        counters = _cell_job("w10", tmp_path)
+    finally:
+        tmh.shutdown_multihost()
+    assert (tmp_path / "o.meme").read_bytes() == plain_meme
+    assert counters["climb.graph_steps"] == plain["climb.graph_steps"] > 0
 
 
 @pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])

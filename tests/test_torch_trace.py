@@ -35,7 +35,7 @@ CHILDREN = ("count.stream", "count.enqueue", "count.bg_correct",
 READERS = ("parse_ms", "untraced_ms", "seed_select_ms", "replay_ms",
            "climb_step_ms", "climb_steps_per_job", "em_rounds_per_job",
            "redundancy_ms", "host_syncs_per_job", "h2d_copies_per_job",
-           "h2d_mb_per_job")
+           "h2d_mb_per_job", "climb_graph_steps_per_job")
 
 
 class _Kept(lu.PhaseTimer):
@@ -148,8 +148,11 @@ def test_report_is_the_last_output_and_short(engine_flag, tmp_path):
     assert all(ln.startswith(("[TIMING] ", "[COUNT] ")) for ln in lines)
     kinds = [ln.split()[0] for ln in lines]
     assert kinds == sorted(kinds, key=lambda k: k != "[TIMING]")
+    # the device engine's climb adds its counter (0 off CUDA)
+    climb = ["[COUNT] climb.graph_steps"] if engine_flag == "tpu" else []
     assert [ln.split(":")[0] for ln in lines if ln.startswith("[COUNT]")] \
-        == ["[COUNT] syncs", "[COUNT] h2d.copies", "[COUNT] h2d.bytes"]
+        == ["[COUNT] syncs", "[COUNT] h2d.copies", "[COUNT] h2d.bytes"] \
+        + climb
     for ln in lines:
         if ln.startswith("[TIMING] "):
             path, rest = ln[9:].rsplit(": ", 1)
