@@ -1,11 +1,12 @@
 """Native C++ host helpers, bound via ctypes.
 
-The library is built from the port's own source, ``peng_motif_tpu_torch/
-csrc/pengnative.cpp`` (a byte-for-byte copy of the reference package's
-``native/pengnative.cpp``, held equal by tests/test_torch_no_jax.py while
-both exist), into ``peng_motif_tpu_torch/_build/libpengnative.so`` at
-first use, and again whenever the source is newer than the library.  This
-module binds only the functions the port calls.
+The library is built from the port's own sources into
+``peng_motif_tpu_torch/_build/libpengnative.so`` at first use, and again
+whenever a source is newer than the library: ``csrc/pengnative.cpp`` (a
+byte-for-byte copy of the reference package's ``native/pengnative.cpp``,
+held equal by tests/test_torch_no_jax.py while both exist) and
+``csrc/hostcount.cpp`` (the port's own host count).  This module binds
+only the functions the port calls.
 
 The host side's parity with the reference binary rests on this library
 (libstdc++ tie-exact sorts, reference-order float folds), so there is no
@@ -18,7 +19,7 @@ import ctypes
 import os
 import subprocess
 import threading
-from typing import List, Sequence
+from typing import List, Sequence, Union
 
 import numpy as np
 
@@ -27,6 +28,7 @@ from ..utils.logging_utils import span
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
 _SRC = os.path.join(_PKG, "csrc", "pengnative.cpp")
+_SRCS = (_SRC, os.path.join(_PKG, "csrc", "hostcount.cpp"))
 _SO = os.path.join(BUILD_DIR, "libpengnative.so")
 
 _lock = threading.Lock()
@@ -40,20 +42,25 @@ _c_u32p = ctypes.POINTER(ctypes.c_uint32)
 _c_u64p = ctypes.POINTER(ctypes.c_uint64)
 
 
-def compile_library(src: str, so: str, cmd: List[str]) -> str:
-    """Run ``cmd + ["-o", <tmp>, src]`` when ``so`` is missing or older
-    than ``src``, then move the result into place atomically (a per-
-    process temp name, so concurrent builders never see a half-written
-    library).  Returns the compiler's output; raises RuntimeError with
-    it when the build fails."""
-    if not os.path.exists(src):
-        raise RuntimeError(f"source not found: {src}")
-    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+def compile_library(src: Union[str, Sequence[str]], so: str,
+                    cmd: List[str]) -> str:
+    """Run ``cmd + ["-o", <tmp>, *sources]`` when ``so`` is missing or
+    older than one of the sources (``src``: one path or several), then
+    move the result into place atomically (a per-process temp name, so
+    concurrent builders never see a half-written library).  Returns the
+    compiler's output; raises RuntimeError with it when the build
+    fails."""
+    srcs = [src] if isinstance(src, str) else list(src)
+    for path in srcs:
+        if not os.path.exists(path):
+            raise RuntimeError(f"source not found: {path}")
+    if os.path.exists(so) and all(
+            os.path.getmtime(so) >= os.path.getmtime(p) for p in srcs):
         return ""
     os.makedirs(os.path.dirname(so), exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
     try:
-        proc = subprocess.run(cmd + ["-o", tmp, src], capture_output=True,
+        proc = subprocess.run(cmd + ["-o", tmp] + srcs, capture_output=True,
                               text=True, timeout=600)
     except OSError as e:
         raise RuntimeError(f"cannot run {cmd[0]}: {e}") from e
@@ -109,10 +116,16 @@ def _declare(lib) -> None:
              _c_f32p, ctypes.POINTER(ctypes.c_int),
              ctypes.POINTER(ctypes.c_int)], None),
         "float_sort_indices_asc": ([_c_f32p, ctypes.c_uint64, _c_u32p], None),
-        # the exact engine (pipeline.Peng._process_exact, pattern_tables)
+        # the host count (hostcount.cpp); count_rows_exact is the scan
+        # it replaced, which the tests hold it to
+        "host_count_scan": ([_c_u8p, ctypes.c_int64, ctypes.c_int64,
+                             ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                             _c_i32p], ctypes.c_int64),
+        "host_count_mirror": ([_c_i32p, ctypes.c_int, ctypes.c_int], None),
         "count_rows_exact": ([_c_u8p, ctypes.c_int64, ctypes.c_int64,
                               ctypes.c_int, ctypes.c_int, ctypes.c_int,
                               _c_i32p], ctypes.c_int64),
+        # the exact engine (pipeline.Peng._process_exact, pattern_tables)
         "pack_codes_native": ([_c_u8p, ctypes.c_int64, ctypes.c_int64,
                                _c_u8p], None),
         "dedup_fixup_rows": ([_c_u8p, ctypes.c_int64, ctypes.c_int64,
@@ -159,9 +172,9 @@ def get_lib() -> ctypes.CDLL:
             base = ["g++", "-O3", "-std=c++17", "-ffp-contract=off",
                     "-shared", "-fPIC"]
             try:
-                compile_library(_SRC, _SO, base + ["-march=native"])
+                compile_library(_SRCS, _SO, base + ["-march=native"])
             except RuntimeError:
-                compile_library(_SRC, _SO, base)
+                compile_library(_SRCS, _SO, base)
             lib = ctypes.CDLL(_SO)
             _declare(lib)
             _lib = lib
@@ -394,16 +407,22 @@ def count_rows_exact_native(codes: np.ndarray, w: int, both_strands: bool,
                             n_threads: int = 0):
     """Threaded host count of a [B, L] code batch with the reference
     scan's semantics (validity, post-N skip, greedy non-overlap,
-    canonical mirroring; see pengnative.cpp count_rows_exact): (counts
-    int32 [4**w], ltot)."""
+    canonical mirroring; see hostcount.cpp): (counts int32 [4**w],
+    ltot), integer-identical to pengnative.cpp's count_rows_exact.
+    ``n_threads`` < 1 takes the hardware's.  Spans ``scan`` and
+    ``mirror``."""
     lib = get_lib()
     codes = np.ascontiguousarray(codes, dtype=np.uint8)
     if codes.ndim != 2:
         codes = codes.reshape(1, -1)
     table = np.empty(4 ** w, dtype=np.int32)
-    ltot = lib.count_rows_exact(_ptr(codes, ctypes.c_uint8), codes.shape[0],
-                                codes.shape[1], w, 1 if both_strands else 0,
-                                n_threads, _ptr(table, ctypes.c_int32))
+    with span("scan"):
+        ltot = lib.host_count_scan(
+            _ptr(codes, ctypes.c_uint8), codes.shape[0], codes.shape[1], w,
+            1 if both_strands else 0, n_threads, _ptr(table, ctypes.c_int32))
+    if both_strands:
+        with span("mirror"):
+            lib.host_count_mirror(_ptr(table, ctypes.c_int32), w, n_threads)
     return table, int(ltot)
 
 

@@ -24,7 +24,9 @@ non-palindromic entries hold p(fwd) + p(revcomp); palindromes stay.
 
 The reference module's host f32 functions (``host_bg_prob_flat``,
 ``host_aggregate_double_strand_flat``) have no copy here: the port's
-host table is the native one (engine._host_bg_flat).
+host table is the native one (native.bg_prob_table_native_fn, in the
+exact engine); the device engine's seed selection reads the stats
+program's table (engine.process_gpu), the same bits.
 """
 
 from __future__ import annotations

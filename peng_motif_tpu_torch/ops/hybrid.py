@@ -84,7 +84,10 @@ def _env_f(name: str, default: float) -> float:
 # at 10.2 Mbases (0.70 against 1.41 s) and at 51.2 Mbases.  A second run
 # put the crossover higher (lat 0.996 s, h 142 Mbases/s, the card's rate
 # lost in the 0.1 s spread of its fixed cost: 141 Mbases); the defaults
-# keep the lower one.
+# keep the lower one.  The host walls were measured before the host count
+# of csrc/hostcount.cpp, which cut MafK's (1 Mbase) at W = 12 from 0.48 to
+# 0.045 s on the H100's 8-core host; the constants are not re-fit, so the
+# W = 12 crossover now lies above the 80 Mbases they give.
 _DEVICE_BASES_S = (384e6, 427e6, 463e6)
 _HOST_BASES_S = (168e6, 111e6, 77.6e6)
 _DEVICE_LATENCY_S = (-0.009, -0.007, 0.854)

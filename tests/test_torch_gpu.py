@@ -17,7 +17,9 @@ on a machine without them:
 Tolerances: counts, integer contractions, the background tables,
 adv-PWMs and the walks' integer trace fields bit-identical; walk
 aggregates within 1e-6 relative and scores within 2e-6 relative + 2e-5
-absolute; EM PWMs within 5e-6 with identical iteration counts; MEME
+absolute; EM PWMs within 5e-6 with identical iteration counts; the
+seeds' background table fetched from the card bit-identical to the host
+fold; MEME
 output within the ENGINE_CASES tolerance of the golden files (5e-6
 absolute + 1e-6 relative; 2e-5 for the merge-heavy mafk_w8_rich); the
 device engine against the exact engine on a 20-Mbase corpus with every
@@ -716,6 +718,46 @@ def test_climb_graph_beside_a_nccl_group(cuda, tmp_path):
         tmh.shutdown_multihost()
     assert (tmp_path / "o.meme").read_bytes() == plain_meme
     assert counters["climb.graph_steps"] == plain["climb.graph_steps"] > 0
+
+
+@pytest.mark.parametrize("strand", ["BOTH", "PLUS"])
+@pytest.mark.parametrize("W", [8, 10, 12])
+def test_seeds_bgp_from_the_card_is_the_host_fold(W, strand, cuda, tmp_path,
+                                                 monkeypatch):
+    """The seed selection reads the stats program's bgp, fetched from the
+    card: on a MafK job (the planner's share, as the cells run it) the
+    table ``base_stats_native`` gets is the host fold of the job's own
+    background conditionals, bit for bit."""
+    from peng_motif_tpu_torch.native import bg_prob_table_native_fn
+
+    monkeypatch.delenv("PENG_HYBRID_DEVICE_FRAC")
+    programs, tables = [], []
+    real_stats, real_base = engine.stats_program, engine.base_stats_native
+
+    def stats_program(state, length, order_k, order_max, both):
+        st = real_stats(state, length, order_k, order_max, both)
+        programs.append((state, order_k, both, st["bgp"]))
+        return st
+
+    def base_stats_native(counts, bgp, ltot):
+        tables.append(np.array(bgp))
+        return real_base(counts, bgp, ltot)
+
+    monkeypatch.setattr(engine, "stats_program", stats_program)
+    monkeypatch.setattr(engine, "base_stats_native", base_stats_native)
+    argv = [os.path.join(GOLDEN_DIR, "MafK.fasta"), "-w", str(W),
+            "--strand", strand, "--engine", "tpu", "-o",
+            str(tmp_path / "o.meme")]
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        assert main(argv) == 0
+    assert engine.LAST_ENGINE_USED == "gpu"
+    ((state, order_k, both, bgp_dev),), (got,) = programs, tables
+    assert bgp_dev.device.type == "cuda" and both == (strand == "BOTH")
+    want = bg_prob_table_native_fn(
+        [v.cpu().numpy() for v in state.v[: order_k + 1]], W, order_k, both)
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
 
 
 @pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])

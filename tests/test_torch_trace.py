@@ -30,12 +30,13 @@ TOP = ("parse", "background", "count", "optimize", "replay", "pwm",
        "em+merge", "redundancy", "output")
 CHILDREN = ("count.stream", "count.enqueue", "count.bg_correct",
             "count.fetch", "count.fixup", "count.upload", "count.seeds",
-            "optimize.step", "optimize.fetch", "pwm.adv", "pwm.em_round",
+            "count.seeds.bgp", "count.seeds.stats", "count.seeds.sort",
+            "count.seeds.walk", "optimize.step", "optimize.fetch", "pwm.adv", "pwm.em_round",
             "pwm.fetch", "em+merge.merge")
 READERS = ("parse_ms", "untraced_ms", "seed_select_ms", "replay_ms",
            "climb_step_ms", "climb_steps_per_job", "em_rounds_per_job",
            "redundancy_ms", "host_syncs_per_job", "h2d_copies_per_job",
-           "h2d_mb_per_job", "climb_graph_steps_per_job")
+           "h2d_mb_per_job", "climb_graph_steps_per_job", "seed_sort_ms")
 
 
 class _Kept(lu.PhaseTimer):
@@ -103,6 +104,12 @@ def test_worker_thread_spans_have_the_span_that_started_them(
     assert thread.parent == count.id and join.parent == count.id
     assert thread.thread != count.thread
     assert count.start_ns <= thread.start_ns <= thread.end_ns <= join.end_ns
+    # the host count's two parts, on the share's thread
+    for name in ("scan", "mirror"):
+        (part,) = [s for s in rec.spans
+                   if s.path == f"count.host_thread.{name}"]
+        assert part.parent == thread.id and part.thread == thread.thread
+        assert thread.start_ns <= part.start_ns <= part.end_ns <= thread.end_ns
     _, _, _, rec = _job(tmp_path, engine_flag="exact")
     (scan,) = [s for s in rec.spans if s.path == "background.bg_scan"]
     (bg,) = [s for s in rec.spans if s.path == "background"]
