@@ -5,8 +5,10 @@ The library is built from the port's own sources into
 whenever a source is newer than the library: ``csrc/pengnative.cpp`` (a
 byte-for-byte copy of the reference package's ``native/pengnative.cpp``,
 held equal by tests/test_torch_no_jax.py while both exist) and
-``csrc/hostcount.cpp`` (the port's own host count).  This module binds
-only the functions the port calls.
+``csrc/hostcount.cpp`` (the port's own host count) and
+``csrc/seedsort.cpp`` (the host's part of the device engine's seed
+z-sort and its walk).  This module binds only the functions the port
+calls.
 
 The host side's parity with the reference binary rests on this library
 (libstdc++ tie-exact sorts, reference-order float folds), so there is no
@@ -28,7 +30,8 @@ from ..utils.logging_utils import span
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
 _SRC = os.path.join(_PKG, "csrc", "pengnative.cpp")
-_SRCS = (_SRC, os.path.join(_PKG, "csrc", "hostcount.cpp"))
+_SRCS = (_SRC, os.path.join(_PKG, "csrc", "hostcount.cpp"),
+         os.path.join(_PKG, "csrc", "seedsort.cpp"))
 _SO = os.path.join(BUILD_DIR, "libpengnative.so")
 
 _lock = threading.Lock()
@@ -125,6 +128,14 @@ def _declare(lib) -> None:
         "count_rows_exact": ([_c_u8p, ctypes.c_int64, ctypes.c_int64,
                               ctypes.c_int, ctypes.c_int, ctypes.c_int,
                               _c_i32p], ctypes.c_int64),
+        # the device engine's seeds (seedsort.cpp)
+        "seed_sort_finish": ([_c_f32p, ctypes.c_int64, _c_i64p,
+                              ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                              _c_u32p], None),
+        "seed_walk_prefix": ([_c_u32p, _c_f32p, _c_i32p, ctypes.c_int64,
+                              ctypes.c_int, ctypes.c_float, ctypes.c_int32,
+                              ctypes.c_int, ctypes.c_int, _c_i64p],
+                             ctypes.c_int64),
         # the exact engine (pipeline.Peng._process_exact, pattern_tables)
         "pack_codes_native": ([_c_u8p, ctypes.c_int64, ctypes.c_int64,
                                _c_u8p], None),
@@ -489,6 +500,52 @@ def zscore_sort_prefix_indices(z: np.ndarray,
     lib.zscore_sort_prefix(_ptr(z, ctypes.c_float), z.shape[0],
                            float(zscore_threshold), _ptr(out, ctypes.c_uint32))
     return out
+
+
+def seed_sort_finish_native(z: np.ndarray, ranges, keep_end: int,
+                            fin: int) -> np.ndarray:
+    """The end of the prefix-pruned z-sort (see csrc/seedsort.cpp): ``z``
+    holds the keys of positions [0, len(z)) as the device's partitions
+    left them, ``ranges`` the (first, last, depth) triples they did not
+    partition.  Returns the positions of [0, len(z)) in their sorted
+    order over [0, fin): ``[:keep_end]`` is zscore_sort_prefix's."""
+    z = _f32(z)
+    ranges = np.ascontiguousarray(ranges, dtype=np.int64).reshape(-1, 3)
+    if not 0 < keep_end <= fin <= z.shape[0] or (
+            ranges.size and (ranges[:, 0].min() < 0
+                             or ranges[:, 1].max() > z.shape[0])):
+        raise ValueError("seed_sort_finish: ranges outside the fetched keys")
+    perm = np.empty(fin, dtype=np.uint32)
+    get_lib().seed_sort_finish(
+        _ptr(z, ctypes.c_float), z.shape[0], _ptr(ranges, ctypes.c_int64),
+        ranges.shape[0], keep_end, fin, _ptr(perm, ctypes.c_uint32))
+    return perm
+
+
+def seed_walk_prefix_native(ids, z, counts, w: int, z_thr: float,
+                            count_thr: int, single_stranded: bool,
+                            filter_neighbors: bool) -> np.ndarray:
+    """The seed walk (reference: src/base_pattern.cpp:443-515) over a
+    z-sorted prefix: ``ids`` the prefix's pattern ids, ``z`` and
+    ``counts`` their z-scores and counts.  Returns the prefix positions
+    of the seeds, in walk order."""
+    ids = np.ascontiguousarray(ids, dtype=np.uint32)
+    z = _f32(z)
+    counts = np.ascontiguousarray(counts, dtype=np.int32)
+    n = ids.shape[0]
+    if z.shape[0] != n or counts.shape[0] != n:
+        raise ValueError("seed_walk_prefix: arrays of unequal lengths")
+    if n and int(ids.max()) >= 4 ** w:
+        raise ValueError(f"seed_walk_prefix: an id beyond 4**{w}")
+    out = np.empty(max(n, 1), dtype=np.int64)
+    n_sel = get_lib().seed_walk_prefix(
+        _ptr(ids, ctypes.c_uint32), _ptr(z, ctypes.c_float),
+        _ptr(counts, ctypes.c_int32), n, w, z_thr, count_thr,
+        1 if single_stranded else 0, 1 if filter_neighbors else 0,
+        _ptr(out, ctypes.c_int64))
+    if n_sel < 0:
+        raise MemoryError(f"seed_walk_prefix: no room for 4**{w} flags")
+    return out[:n_sel]
 
 
 def select_patterns_walk_native(order, z, counts, w: int, z_thr: float,

@@ -721,13 +721,15 @@ def test_climb_graph_beside_a_nccl_group(cuda, tmp_path):
 
 
 @pytest.mark.parametrize("strand", ["BOTH", "PLUS"])
-@pytest.mark.parametrize("W", [8, 10, 12])
+@pytest.mark.parametrize("W", [8])
 def test_seeds_bgp_from_the_card_is_the_host_fold(W, strand, cuda, tmp_path,
                                                  monkeypatch):
-    """The seed selection reads the stats program's bgp, fetched from the
-    card: on a MafK job (the planner's share, as the cells run it) the
-    table ``base_stats_native`` gets is the host fold of the job's own
-    background conditionals, bit for bit."""
+    """Where the host sorts the whole z table (W <= 8), the seed selection
+    reads the stats program's bgp, fetched from the card: on a MafK job
+    (the planner's share, as the cells run it) the table
+    ``base_stats_native`` gets is the host fold of the job's own
+    background conditionals, bit for bit.  W 10 and 12:
+    test_seeds_z_and_prefix_from_the_card."""
     from peng_motif_tpu_torch.native import bg_prob_table_native_fn
 
     monkeypatch.delenv("PENG_HYBRID_DEVICE_FRAC")
@@ -758,6 +760,68 @@ def test_seeds_bgp_from_the_card_is_the_host_fold(W, strand, cuda, tmp_path,
         [v.cpu().numpy() for v in state.v[: order_k + 1]], W, order_k, both)
     assert got.dtype == want.dtype == np.float32
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("strand", ["BOTH", "PLUS"])
+@pytest.mark.parametrize("W", [10, 12])
+def test_seeds_z_and_prefix_from_the_card(W, strand, cuda, tmp_path,
+                                          monkeypatch):
+    """Past the host range the z-sort's large partitions run on the card
+    (ops/seed_sort.py): on a MafK job (the planner's share), the stats
+    program's z and expected are ``base_stats_native``'s on the card's
+    own bgp, bit for bit, that bgp is the host fold, and the prefix the
+    seeds were walked over is the native zscore_sort_prefix's, after at
+    least one partition on the card."""
+    from peng_motif_tpu_torch.native import (
+        base_stats_native, bg_prob_table_native_fn,
+        zscore_sort_prefix_indices)
+
+    monkeypatch.delenv("PENG_HYBRID_DEVICE_FRAC")
+    seen = []
+    real_stats, real_prefix = engine.stats_program, engine._seed_prefix
+
+    def stats_program(state, length, order_k, order_max, both):
+        st = real_stats(state, length, order_k, order_max, both)
+        seen.append((state, order_k, both))
+        return st
+
+    def seed_prefix(st, counts, ltot, zthr):
+        prefix = real_prefix(st, counts, ltot, zthr)
+        seen.append((st, counts.copy(), ltot, zthr, prefix))
+        return prefix
+
+    monkeypatch.setattr(engine, "stats_program", stats_program)
+    monkeypatch.setattr(engine, "_seed_prefix", seed_prefix)
+    err = io.StringIO()
+    argv = [os.path.join(GOLDEN_DIR, "MafK.fasta"), "-w", str(W),
+            "--strand", strand, "--engine", "tpu", "-o",
+            str(tmp_path / "o.meme"), "--timing"]
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(err):
+        assert main(argv) == 0
+    assert engine.LAST_ENGINE_USED == "gpu"
+    (state, order_k, both), (st, counts, ltot, zthr, prefix) = seen
+    assert st["z"].device.type == "cuda" and both == (strand == "BOTH")
+    bgp = st["bgp"].cpu().numpy()
+    want_bgp = bg_prob_table_native_fn(
+        [v.cpu().numpy() for v in state.v[: order_k + 1]], W, order_k, both)
+    np.testing.assert_array_equal(bgp.view(np.uint32),
+                                  want_bgp.view(np.uint32))
+    expected, z = base_stats_native(counts, bgp, ltot)
+    for name, want in (("z", z), ("expected", expected)):
+        got = st[name].cpu().numpy()
+        assert got.dtype == np.float32, name
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32), err_msg=name)
+    keep = int(np.count_nonzero(~(z < np.float32(zthr))))
+    order = zscore_sort_prefix_indices(z, float(zthr))[: keep + 1]
+    np.testing.assert_array_equal(prefix.ids, order)
+    np.testing.assert_array_equal(prefix.z.view(np.uint32),
+                                  z[order].view(np.uint32))
+    np.testing.assert_array_equal(prefix.expected.view(np.uint32),
+                                  expected[order].view(np.uint32))
+    assert "[COUNT] seeds.card_partitions: 0" not in err.getvalue()
+    assert "[COUNT] seeds.card_partitions: " in err.getvalue()
 
 
 @pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])

@@ -36,7 +36,8 @@ CHILDREN = ("count.stream", "count.enqueue", "count.bg_correct",
 READERS = ("parse_ms", "untraced_ms", "seed_select_ms", "replay_ms",
            "climb_step_ms", "climb_steps_per_job", "em_rounds_per_job",
            "redundancy_ms", "host_syncs_per_job", "h2d_copies_per_job",
-           "h2d_mb_per_job", "climb_graph_steps_per_job", "seed_sort_ms")
+           "h2d_mb_per_job", "climb_graph_steps_per_job", "seed_sort_ms",
+           "seed_card_partitions_per_job")
 
 
 class _Kept(lu.PhaseTimer):
@@ -155,11 +156,13 @@ def test_report_is_the_last_output_and_short(engine_flag, tmp_path):
     assert all(ln.startswith(("[TIMING] ", "[COUNT] ")) for ln in lines)
     kinds = [ln.split()[0] for ln in lines]
     assert kinds == sorted(kinds, key=lambda k: k != "[TIMING]")
-    # the device engine's climb adds its counter (0 off CUDA)
-    climb = ["[COUNT] climb.graph_steps"] if engine_flag == "tpu" else []
+    # the device engine's seeds and climb add their counters (the seeds'
+    # 0 where the host sorts the whole table, the climb's 0 off CUDA)
+    device = (["[COUNT] seeds.card_partitions", "[COUNT] climb.graph_steps"]
+              if engine_flag == "tpu" else [])
     assert [ln.split(":")[0] for ln in lines if ln.startswith("[COUNT]")] \
         == ["[COUNT] syncs", "[COUNT] h2d.copies", "[COUNT] h2d.bytes"] \
-        + climb
+        + device
     for ln in lines:
         if ln.startswith("[TIMING] "):
             path, rest = ln[9:].rsplit(": ", 1)
