@@ -117,31 +117,28 @@ caught):
                flat table), aggregate_batch counts identical and floats
                within 1e-5 relative, em_optimize iteration counts
                identical and PWMs within 5e-6;
- 12. hybrid  — the host+device co-count (ops/hybrid.py).  The two
-               shares' rates on the 51.2-Mbase corpus at -w 8, 10, 12,
-               each alone and beside the other (why the planner plans no
-               split).  Then the count phase with the whole corpus on
-               the card and with the whole corpus on the host, in turns,
-               at -w 8, 10, 12 over MafK_100seqs, MafK and prefixes of
-               the 51.2-Mbase corpus from 8 sequences up: the walls behind
-               the planner's defaults, the cost model fitted to them, and
-               for each corpus the end the defaults plan beside the end
-               that was faster.  Then the 51.2-Mbase corpus and MafK at
-               -w 10 and MafK_100seqs at -w 12 through the CLI with the
-               device share forced to 1, 0.5 and 0 and left to the
-               planner: count table, ltot, background counts, MEME bytes
-               and stdout identical across the four, LAST_HYBRID_FRAC as
-               forced or planned (the planner must take the card for the
-               first and the host for the last: a default run on each
-               side), the device share's kernel launches printed (0 at
-               fraction 0) and the kernel held against the plain version
-               on each run's ids; job and count-phase walls of the
-               planner against the pure device count, in turns, medians
-               of eight runs each (four at -w 12).  The same identity for
-               the count phase alone at 51.2 Mbases -w 12, where the
-               resident table with its addends must equal the host table,
-               and there the walls of the planner's choice, the pure
-               device count and the host-only count in turns;
+ 12. hybrid  — where the count phase counts (ops/hybrid.py): on the
+               card or on the host, over the whole corpus.  The count
+               phase at either end, in turns, at -w 8, 10, 12 over
+               MafK_100seqs, MafK and prefixes of the 51.2-Mbase corpus
+               from 8 sequences up: the walls behind the rule's
+               crossover, the two ends' rates and fixed costs fitted to
+               them, and for each corpus the end the rule takes beside
+               the end that was faster.  Then the 51.2-Mbase corpus and
+               MafK at -w 10 and MafK_100seqs at -w 12 through the CLI on
+               the card, on the host and at the rule's end: count table,
+               ltot, background counts, MEME bytes and stdout identical
+               across the three, LAST_HYBRID_FRAC as forced or as the
+               rule answers (the rule must take the card for the first
+               and the host for the last: a default run on each side),
+               the kernel launches printed (0 on the host) and the
+               kernel held against the plain version on each run's ids;
+               job and count-phase walls of the rule's end against the
+               card, in turns, medians of eight runs each (four at -w
+               12).  The same identity for the count phase alone at 51.2
+               Mbases -w 12, where the resident table with its fix-up
+               must equal the host table, and there the walls of the
+               rule's end, the card and the host in turns;
  13. shoot   — python -m peng_motif_tpu_torch.shoot on MafK_100seqs -w 8
                --no-scoring, on the card and on the CPU: both exit 0, MEME
                and JSON within the engine tolerance of each other;
@@ -169,8 +166,8 @@ caught):
                single-process run's;
                dryrun_multichip over the cards.
 
-Every phase but 12 runs with PENG_HYBRID_DEVICE_FRAC=1 (the whole corpus
-on the card).  The last two lines are the kernels' JSON record and the run's
+Every phase but 12 counts on the card (ops/hybrid.count_on_host patched
+to answer False).  The last two lines are the kernels' JSON record and the run's
 result,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
 exits non-zero before any phase.
@@ -351,8 +348,8 @@ class Recorder:
             out = real_phase(peng, *a, **k)
             self.count_s += time.perf_counter() - t0
             self.counts, self.ltot = out[0], out[1]
-            # delivered by the count phase (the fused device histogram,
-            # the co-count's host share, or both)
+            # delivered by the count phase (the fused device histogram
+            # or the host count's scan)
             self.bg = [n.copy() for n in peng.bg_model.n]
             return out
 
@@ -392,10 +389,24 @@ def count_on(where):
                    "0" if where == "device" else None)
 
 
-def device_frac(frac):
-    """The co-count's device share (ops/hybrid.py) forced to ``frac``
-    through PENG_HYBRID_DEVICE_FRAC or, for None, left to the planner."""
-    return environ("PENG_HYBRID_DEVICE_FRAC", frac)
+# ops/hybrid.count_on_host, the rule that picks where the count phase
+# counts; main() keeps it here before it pins every phase to the card
+RULE = None
+
+
+@contextlib.contextmanager
+def count_end(on_host):
+    """The count phase forced onto the host (True) or the card (False)
+    by patching ops/hybrid.count_on_host, or left to the rule (None)."""
+    from peng_motif_tpu_torch.ops import hybrid
+
+    old = hybrid.count_on_host
+    hybrid.count_on_host = (RULE if on_host is None
+                            else (lambda *a: on_host))
+    try:
+        yield
+    finally:
+        hybrid.count_on_host = old
 
 
 class ExactRecorder:
@@ -1516,118 +1527,43 @@ def run_hybrid_phase(tmp, large_fasta, dev, n_bases):
 
     from peng_motif_tpu_torch import engine
     from peng_motif_tpu_torch.io.fasta import load_sequence_set
-    from peng_motif_tpu_torch.models.background import (BackgroundModel,
-                                                        bg_device_corrections)
+    from peng_motif_tpu_torch.models.background import BackgroundModel
     from peng_motif_tpu_torch.ops import histogram as H
-    from peng_motif_tpu_torch.ops import hybrid as hy
-    from peng_motif_tpu_torch.parallel import sharded
-    from peng_motif_tpu_torch.utils.logging_utils import PhaseTimer
 
-    rec = {"rates": {}, "ends": {}, "planned": {}, "launches": {}, "walls": {}}
+    rec = {"ends": {}, "rule": {}, "launches": {}, "walls": {}}
     both, bg_order = True, 2
     sset = load_sequence_set(large_fasta)
-    flat, lengths = sset._flat_codes, sset._lengths()
-    assert flat is not None and flat.shape[0] == n_bases
+    assert sset.total_bases == n_bases
+    cores = os.cpu_count()
+    names = {None: "the rule", False: "card", True: "host"}
 
-    def device_share(n_seq, W):
-        """The device share of the count over the first ``n_seq``
-        sequences, as engine._count_phase runs it: wall from the start of
-        the pack to the fetched slice."""
-        off = int(lengths[:n_seq].sum())
-        seqs = sset.sequences[:n_seq]
-        t0 = time.perf_counter()
-        _stream, lay, out = sharded.stream_count_sharded(
-            seqs, W, both, (dev,), flat_codes=flat[:off], bg_order=bg_order,
-            n_undefined=0)
-        bg_device_corrections(seqs, bg_order, flat_codes=flat[:off],
-                              lengths=lay.lengths)
-        engine._fetch(out)
-        return time.perf_counter() - t0
-
-    def count_phase_wall(ss, W, frac):
-        """engine._count_phase on ``ss`` under a forced device share."""
+    def count_phase_wall(ss, W, on_host):
+        """engine._count_phase on ``ss`` at a forced end."""
         peng = types.SimpleNamespace(
             sequence_set=ss,
             bg_model=BackgroundModel(ss.sequences, order=bg_order,
                                      interpolate=True, defer=True))
-        with device_frac(frac):
+        with count_end(on_host):
             t0 = time.perf_counter()
             engine._count_phase(peng, W, both, dev)
             return time.perf_counter() - t0
-
-    def host_share_wall():
-        with PhaseTimer().activate() as recorder:
-            hy.start_host_share(sset.sequences, lengths, flat, 0, W, both,
-                                bg_order).join()
-        return recorder.totals()["host_thread"][0]
-
-    with phase("hybrid: the shares' rates, 51.2 Mbases"):
-        # the two shares of a split, each alone and beside the other: why
-        # the planner's defaults (ops/hybrid.py) plan no split
-        few = os.path.join(tmp, "few.fasta")
-        with open(large_fasta, "rb") as f, open(few, "wb") as g:
-            g.writelines(f.readline() for _ in range(16))   # 8 records
-        few_set = load_sequence_set(few)
-        assert few_set.n == 8
-        cores = os.cpu_count()
-        for W in (8, 10, 12):
-            device_share(sset.n, W)                       # warm-up
-            # the latency to a device share's fetched slice
-            lat = median([device_share(8, W) for _ in range(5)])
-            d_alone = median([device_share(sset.n, W) for _ in range(3)])
-            h_alone = median([host_share_wall() for _ in range(2)])
-            host_s, dev_s = [], []
-            for _ in range(3):
-                # both shares over the whole corpus, side by side: each
-                # wall is taken under the other's load
-                with PhaseTimer().activate() as recorder:
-                    share = hy.start_host_share(sset.sequences, lengths,
-                                                flat, 0, W, both, bg_order)
-                    dev_s.append(device_share(sset.n, W))
-                    share.join()
-                host_s.append(recorder.totals()["host_thread"][0])
-            d1 = n_bases / max(d_alone - lat, 1e-9)
-            dc = n_bases / max(median(dev_s) - lat, 1e-9)
-            hc, h1 = n_bases / median(host_s), n_bases / h_alone
-            # what the host share adds to the count's total rate while
-            # both run: its own rate less what it takes from the device
-            # share (they draw on the same cores)
-            h = max(0.0, hc - (d1 - dc))
-            f = 1.0 if h <= 0 else min(1.0, max(0.0, (
-                (n_bases / h - lat) / (n_bases / d1 + n_bases / h))))
-            with device_frac(None):
-                planned = hy.plan_device_fraction(n_bases, W)
-            rec["rates"][str(W)] = dict(
-                device_alone_bases_s=d1, device_beside_bases_s=dc,
-                host_alone_bases_s=h1, host_beside_bases_s=hc,
-                host_net_bases_s=h, share_latency_s=lat, f_star=f)
-            rec["planned"][str(W)] = planned
-            print(f"  w{W}: device share alone {d1 / 1e6:.1f} Mbases/s (wall "
-                  f"{d_alone:.4f} s), beside the host share "
-                  f"{dc / 1e6:.1f} (walls {dev_s}); host share alone "
-                  f"{h1 / 1e6:.1f} Mbases/s (wall {h_alone:.4f} s), beside "
-                  f"the device share {hc / 1e6:.1f} (walls {host_s}); net "
-                  f"host rate {h / 1e6:.1f} Mbases/s; latency to a device "
-                  f"share's fetched slice {lat * 1e3:.3f} ms (8 sequences); "
-                  f"{cores} host cores: a split by the formula at that net "
-                  f"rate, f* = {f:.3f}; the planner's defaults give "
-                  f"{planned:.3f}", flush=True)
 
     mafk = os.path.join(GOLDEN, "MafK.fasta")
     mafk100 = os.path.join(GOLDEN, "MafK_100seqs.fasta")
     with phase("hybrid: the count phase on the card and on the host, by "
                "corpus size"):
-        # the walls behind the planner's defaults (ops/hybrid.py): the
-        # whole count phase at either end over prefixes of the corpus,
-        # in turns, and the cost model fitted to them
-        ladder = {"8 seqs": few_set, "51.2 Mbases": sset}
-        for n_seq in (500, 5000):
+        # the walls behind the rule's crossover (ops/hybrid.py): the whole
+        # count phase at either end over prefixes of the corpus, in turns,
+        # and the two ends' rates and fixed costs fitted to them
+        ladder = {"51.2 Mbases": sset}
+        for n_seq in (8, 500, 5000):
             path = os.path.join(tmp, f"prefix{n_seq}.fasta")
             with open(large_fasta, "rb") as f, open(path, "wb") as g:
                 g.writelines(f.readline() for _ in range(2 * n_seq))
             ss = load_sequence_set(path)
             assert ss.n == n_seq
-            ladder[f"{ss.total_bases / 1e6:.1f} Mbases"] = ss
+            ladder["8 seqs" if n_seq == 8 else
+                   f"{ss.total_bases / 1e6:.1f} Mbases"] = ss
         ladder["MafK_100seqs"] = load_sequence_set(mafk100)
         ladder["MafK"] = load_sequence_set(mafk)
         ladder = dict(sorted(ladder.items(),
@@ -1635,13 +1571,13 @@ def run_hybrid_phase(tmp, large_fasta, dev, n_bases):
         for W in (8, 10, 12):
             ends = {}
             for name, ss in ladder.items():
-                count_phase_wall(ss, W, 1)                # warm-up
-                walls = {1: [], 0: []}
-                for frac in (1, 0, 0, 1, 1, 0):
-                    walls[frac].append(count_phase_wall(ss, W, frac))
+                count_phase_wall(ss, W, False)            # warm-up
+                walls = {False: [], True: []}
+                for on_host in (False, True, True, False, False, True):
+                    walls[on_host].append(count_phase_wall(ss, W, on_host))
                 ends[name] = dict(bases=ss.total_bases,
-                                  device_s=median(walls[1]),
-                                  host_s=median(walls[0]))
+                                  device_s=median(walls[False]),
+                                  host_s=median(walls[True]))
             small, large = ends["8 seqs"], ends["51.2 Mbases"]
             # seconds per base at either end, from the small corpus to
             # the large one; the card's can drown in the spread of its
@@ -1650,21 +1586,22 @@ def run_hybrid_phase(tmp, large_fasta, dev, n_bases):
             span = large["bases"] - small["bases"]
             per_d = max(large["device_s"] - small["device_s"], 0.0) / span
             per_h = max(large["host_s"] - small["host_s"], 1e-9) / span
-            with device_frac(None):
-                for name, e in ends.items():
-                    e["planned"] = hy.plan_device_fraction(e["bases"], W)
-                    e["fitted"] = float(
-                        not e["bases"] * per_h < e["bases"] * per_d + lat)
-                    better = float(e["device_s"] <= e["host_s"])
-                    print(f"  w{W} {name} ({e['bases']} bases): count phase "
-                          f"on the card {e['device_s']:.4f} s, on the host "
-                          f"{e['host_s']:.4f} s; the defaults plan "
-                          f"{e['planned']:.0f}, this run's fit "
-                          f"{e['fitted']:.0f}, the faster end {better:.0f}"
-                          + ("" if e["planned"] == better else
-                             f" (the plan costs "
-                             f"{abs(e['device_s'] - e['host_s']):.4f} s)"),
-                          flush=True)
+            for name, e in ends.items():
+                e["rule_host"] = RULE(dev, e["bases"], W)
+                e["fitted_host"] = bool(
+                    e["bases"] * per_h < e["bases"] * per_d + lat)
+                e["faster_host"] = bool(e["host_s"] < e["device_s"])
+                print(f"  w{W} {name} ({e['bases']} bases): count phase "
+                      f"on the card {e['device_s']:.4f} s, on the host "
+                      f"{e['host_s']:.4f} s; the rule counts on the "
+                      f"{'host' if e['rule_host'] else 'card'}, this run's "
+                      f"fit on the {'host' if e['fitted_host'] else 'card'}"
+                      f", the faster end the "
+                      f"{'host' if e['faster_host'] else 'card'}"
+                      + ("" if e["rule_host"] == e["faster_host"] else
+                         f" (the rule costs "
+                         f"{abs(e['device_s'] - e['host_s']):.4f} s)"),
+                      flush=True)
             cross = (lat / (per_h - per_d) if lat > 0 and per_h > per_d
                      else None)
             print(f"  w{W} fit: device count "
@@ -1680,11 +1617,11 @@ def run_hybrid_phase(tmp, large_fasta, dev, n_bases):
                 corpora=ends, device_s_per_base=per_d, host_s_per_base=per_h,
                 latency_s=lat, crossover_bases=cross)
 
-    def cli(fasta, w, frac, out):
-        """One job under a forced fraction (None: the planner's)."""
+    def cli(fasta, w, on_host, out):
+        """One job at a forced end (None: the rule's)."""
         r = Recorder()
         log = io.StringIO()
-        with device_frac(frac), r.active():
+        with count_end(on_host), r.active():
             zero_launches()
             wall, _ = run_cli([fasta, "-w", w, "--device", "cuda", "--engine",
                                "tpu", "-o", out], log)
@@ -1698,126 +1635,123 @@ def run_hybrid_phase(tmp, large_fasta, dev, n_bases):
     for stem, fasta, w, turns in (("large_w10", large_fasta, "10", 4),
                                   ("mafk_w10", mafk, "10", 4),
                                   ("mafk100_w12", mafk100, "12", 2)):
-        with phase(f"hybrid: {stem} through the CLI, forced and planned"):
-            with device_frac(None):
-                planned = hy.plan_device_fraction(
-                    load_sequence_set(fasta).total_bases, int(w))
+        with phase(f"hybrid: {stem} through the CLI, card, host and the "
+                   f"rule"):
+            rule = RULE(dev, load_sequence_set(fasta).total_bases, int(w))
             runs = {}
-            for frac in (1, 0.5, 0, None):
-                r = cli(fasta, w, frac,
-                        os.path.join(tmp, f"hy_{stem}_{frac}.meme"))
-                runs[frac] = r
-                want = planned if frac is None else float(frac)
-                assert r.frac == want, (stem, frac, r.frac, want)
-                print(f"  {stem} frac "
-                      f"{'planned' if frac is None else frac}: "
-                      f"LAST_HYBRID_FRAC {r.frac:.4f}, device share's "
-                      f"histogram launches {r.launches} {r.tier_launches}, "
-                      f"wall {r.wall:.3f} s, count phase {r.count_s:.3f} s, "
-                      f"ltot {r.ltot}", flush=True)
-                assert (r.launches == 0) == (r.frac == 0.0), (stem, frac)
-                # the kernel on the split run's own ids
+            for on_host in (False, True, None):
+                r = cli(fasta, w, on_host,
+                        os.path.join(tmp, f"hy_{stem}_{on_host}.meme"))
+                runs[on_host] = r
+                want = rule if on_host is None else on_host
+                assert r.frac == (0.0 if want else 1.0), (stem, on_host)
+                print(f"  {stem} {names[on_host]}: LAST_HYBRID_FRAC "
+                      f"{r.frac:.1f}, histogram launches {r.launches} "
+                      f"{r.tier_launches}, wall {r.wall:.3f} s, count phase "
+                      f"{r.count_s:.3f} s, ltot {r.ltot}", flush=True)
+                assert (r.launches == 0) == want, (stem, on_host)
+                # the kernel on the run's own ids
                 for n_bins, (ids, inc) in sorted(r.inputs.items()):
                     got = H.histogram(ids, inc, n_bins)
                     plain = H.histogram_plain(ids, inc, n_bins)
                     torch.cuda.synchronize()
-                    assert torch.equal(got, plain), (stem, frac, n_bins)
+                    assert torch.equal(got, plain), (stem, on_host, n_bins)
                 r.inputs = {}
-            rec["launches"][stem] = {
-                "planned" if k is None else str(k): r.launches
-                for k, r in runs.items()}
-            rec["planned"][stem] = planned
-            for frac, r in runs.items():
-                assert same_record(r, runs[1]), \
-                    f"{stem}: frac {frac} changed the count phase's results"
-                assert (r.meme, r.log) == (runs[1].meme, runs[1].log), \
-                    f"{stem}: frac {frac} changed the output"
+            rec["launches"][stem] = {names[k]: r.launches
+                                     for k, r in runs.items()}
+            rec["rule"][stem] = "host" if rule else "card"
+            for on_host, r in runs.items():
+                assert same_record(r, runs[False]), \
+                    f"{stem}: {names[on_host]} changed the count's results"
+                assert (r.meme, r.log) == (runs[False].meme,
+                                           runs[False].log), \
+                    f"{stem}: {names[on_host]} changed the output"
             print(f"  {stem}: count table, ltot, background counts, MEME "
-                  f"bytes and stdout identical across the four; the kernel "
+                  f"bytes and stdout identical across the three; the kernel "
                   f"bit-identical to the plain version on each run's ids",
                   flush=True)
-            # planner (a) against pure device (b): a, b, b, a, ...
-            walls = {None: [], 1: []}
-            for frac in (None, 1, 1, None) * turns:
-                r = cli(fasta, w, frac, os.path.join(tmp, "hy_wall.meme"))
-                walls[frac].append((r.wall, r.count_s))
-            for frac, ws in walls.items():
-                name = f"planner ({planned:.3f})" if frac is None else "frac 1"
+            # the rule (a) against the card (b): a, b, b, a, ...
+            walls = {None: [], False: []}
+            for on_host in (None, False, False, None) * turns:
+                r = cli(fasta, w, on_host, os.path.join(tmp, "hy_wall.meme"))
+                walls[on_host].append((r.wall, r.count_s))
+            for on_host, ws in walls.items():
                 job, cnt = [w[0] for w in ws], [w[1] for w in ws]
-                print(f"  {stem} {name}: job wall median {median(job):.4f} s "
-                      f"(range {min(job):.4f}-{max(job):.4f}), count phase "
-                      f"median {median(cnt):.4f} s (range {min(cnt):.4f}-"
-                      f"{max(cnt):.4f}), {len(ws)} runs", flush=True)
+                print(f"  {stem} {names[on_host]}: job wall median "
+                      f"{median(job):.4f} s (range {min(job):.4f}-"
+                      f"{max(job):.4f}), count phase median {median(cnt):.4f}"
+                      f" s (range {min(cnt):.4f}-{max(cnt):.4f}), {len(ws)} "
+                      f"runs", flush=True)
             rec["walls"][stem] = {
-                "planner" if k is None else "frac_1": dict(
-                    job_median_s=median([w[0] for w in ws]),
-                    count_median_s=median([w[1] for w in ws]), runs=len(ws))
+                names[k]: dict(job_median_s=median([w[0] for w in ws]),
+                               count_median_s=median([w[1] for w in ws]),
+                               runs=len(ws))
                 for k, ws in walls.items()}
 
-    # a default run on each side of the planner's crossover
-    assert rec["planned"]["large_w10"] == 1.0, rec["planned"]
-    assert rec["planned"]["mafk100_w12"] == 0.0, rec["planned"]
-    assert rec["launches"]["large_w10"]["planned"] == 14
-    assert rec["launches"]["mafk100_w12"]["planned"] == 0
+    # a default run on each side of the rule's crossover
+    assert rec["rule"]["large_w10"] == "card", rec["rule"]
+    assert rec["rule"]["mafk100_w12"] == "host", rec["rule"]
+    assert rec["launches"]["large_w10"]["the rule"] == 14
+    assert rec["launches"]["mafk100_w12"]["the rule"] == 0
 
     with phase("hybrid: 51.2 Mbases -w 12, the count phase alone"):
         recs = {}
-        for frac in (1, 0.5, 0, None):
+        for on_host in (False, True, None):
             r = Recorder()
             peng = types.SimpleNamespace(
                 sequence_set=sset,
                 bg_model=BackgroundModel(sset.sequences, order=bg_order,
                                          interpolate=True, defer=True))
-            with device_frac(frac), r.active():
+            with count_end(on_host), r.active():
                 zero_launches()
                 out = engine._count_phase(peng, 12, both, dev)
                 r.launches = H.LAUNCHES
             # the resident table, completed as stats_program completes it
             state = engine.resident_state(out[2], out[1], out[3], out[4], [],
-                                          dev, host_add=out[5])
+                                          dev)
             resident = state.counts.clone()
-            if state.host_add is not None:
-                resident += state.host_add
             resident.index_add_(0, state.fix_ids, state.fix_dv)
             assert np.array_equal(resident.cpu().numpy(), r.counts), \
-                f"w12 frac {frac}: the resident table != counts_host"
+                f"w12 {names[on_host]}: the resident table != counts_host"
             r.inputs = {}
-            recs[frac] = r
-            print(f"  w12 frac {'planned' if frac is None else frac}: "
-                  f"LAST_HYBRID_FRAC {engine.LAST_HYBRID_FRAC:.4f}, count "
-                  f"phase {r.count_s:.3f} s, ltot {r.ltot}, histogram "
-                  f"launches {r.launches}", flush=True)
-            assert same_record(r, recs[1]), f"w12: frac {frac} differs"
-        rec["launches"]["large_w12_count"] = {
-            "planned" if k is None else str(k): r.launches
-            for k, r in recs.items()}
+            recs[on_host] = r
+            print(f"  w12 {names[on_host]}: LAST_HYBRID_FRAC "
+                  f"{engine.LAST_HYBRID_FRAC:.1f}, count phase "
+                  f"{r.count_s:.3f} s, ltot {r.ltot}, histogram launches "
+                  f"{r.launches}", flush=True)
+            assert same_record(r, recs[False]), \
+                f"w12: {names[on_host]} differs"
+        rec["launches"]["large_w12_count"] = {names[k]: r.launches
+                                              for k, r in recs.items()}
         print("  w12: count table, ltot and background counts identical "
-              "across the four; the resident table with its addends equals "
+              "across the three; the resident table with its fix-up equals "
               "the host table", flush=True)
-        # the planner's choice, the pure device count and the host-only
-        # count in turns: the count phase alone, then whole jobs
-        with device_frac(None):
-            planned = hy.plan_device_fraction(n_bases, 12)
-        names = {None: f"planner ({planned:.3f})", 1: "frac 1", 0: "frac 0"}
+        # the rule's end, the card and the host in turns: the count phase
+        # alone, then whole jobs
         walls = {k: [] for k in names}
-        for frac in (None, 1, 0, 0, 1, None) * 2 + (None, 1, 0):
-            walls[frac].append(count_phase_wall(sset, 12, frac))
-        jobs, meme = {1: [], 0: []}, None
-        for frac in (1, 0, 0, 1):
-            r = cli(large_fasta, "12", frac, os.path.join(tmp, "hy_w12.meme"))
-            jobs[frac].append(r.wall)
+        for on_host in (None, False, True, True, False, None) * 2 + (
+                None, False, True):
+            walls[on_host].append(count_phase_wall(sset, 12, on_host))
+        jobs, meme = {False: [], True: []}, None
+        for on_host in (False, True, True, False):
+            r = cli(large_fasta, "12", on_host,
+                    os.path.join(tmp, "hy_w12.meme"))
+            jobs[on_host].append(r.wall)
             meme = meme or r.meme
-            assert r.meme == meme, "w12: the host-only job's MEME differs"
-        for frac, name in names.items():
-            ws = walls[frac]
-            print(f"  w12 {name}: count phase median {median(ws):.4f} s "
-                  f"(range {min(ws):.4f}-{max(ws):.4f}), {len(ws)} runs"
-                  + (f"; job walls {jobs[frac]}" if frac in jobs else ""),
-                  flush=True)
+            assert r.meme == meme, "w12: the host count's MEME differs"
+        rule = "host" if RULE(dev, n_bases, 12) else "card"
+        for on_host, name in names.items():
+            ws = walls[on_host]
+            print(f"  w12 {name}{f' ({rule})' if on_host is None else ''}: "
+                  f"count phase median {median(ws):.4f} s (range "
+                  f"{min(ws):.4f}-{max(ws):.4f}), {len(ws)} runs"
+                  + (f"; job walls {jobs[on_host]}" if on_host in jobs
+                     else ""), flush=True)
         rec["walls"]["large_w12"] = {
-            "planner" if k is None else f"frac_{k}": dict(
-                count_median_s=median(walls[k]), runs=len(walls[k]),
-                job_walls_s=jobs.get(k)) for k in names}
+            names[k]: dict(count_median_s=median(walls[k]),
+                           runs=len(walls[k]), job_walls_s=jobs.get(k))
+            for k in names}
+        rec["rule"]["large_w12"] = rule
     return rec
 
 
@@ -2165,9 +2099,14 @@ def main() -> int:
 
     t_start = time.perf_counter()
     # the phases measure the kernel at full width on the whole corpus:
-    # the co-count is pinned to the pure device count for them (and for
-    # the processes they start); phase 12 owns the planner
-    os.environ["PENG_HYBRID_DEVICE_FRAC"] = "1"
+    # the count is pinned to the card for them (the processes they start
+    # count at W <= 10, where the rule takes the card too); phase 12 owns
+    # the rule
+    global RULE
+    from peng_motif_tpu_torch.ops import hybrid
+
+    RULE = hybrid.count_on_host
+    hybrid.count_on_host = lambda *a: False
 
     import numpy as np
 
@@ -2457,11 +2396,10 @@ def main() -> int:
     # jobs (rows counted, launches, transport), the kernel on one rank's
     # block, and the transport and launches of the world of one;
     # entry_launches / entry: graft_entry.entry()'s one launch (counted
-    # from 0) and the kernel on its input; hybrid: the co-count's measured
-    # rates per width, the count phase's walls at either end by corpus
-    # size with the cost model fitted to them, the fraction the planner's
-    # defaults give, the device share's launches per forced fraction, and
-    # the walls of the planner's choice against the pure device count;
+    # from 0) and the kernel on its input; hybrid: the count phase's walls
+    # at either end by corpus size with the two ends' rates and fixed
+    # costs fitted to them, the end the rule takes, the launches at each
+    # end, and the walls of the rule's end against the card;
     # card_launches: the main path's launches by card index; cards (null
     # on one card): the multi-card phase's launches by card of each run
     # (the --devices main path's run in cli_launches), the kernel on each

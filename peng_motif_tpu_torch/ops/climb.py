@@ -474,9 +474,9 @@ def run_walks(counts_flat, expected_flat, bgp_flat, seed_ids,
               pseudo_expected: int, wide: bool = False) -> WalkTrace:
     """Host wrapper: one walk per seed, run on the tables' device, trace
     fetched to the host.  Raises :class:`ClimbOverflow` when a walk
-    outruns MAX_STEPS or a step accepts more than ACC_CAP rows (the
-    reference package falls back to its exact engine there, which this
-    package does not have)."""
+    outruns MAX_STEPS or a step accepts more than ACC_CAP rows, which
+    engine.process_gpu turns into EngineFallback: the exact engine reruns
+    the job, as in the reference package."""
     dev = counts_flat.device
     ids = upload(np.asarray(seed_ids, dtype=np.int32), dev)
     out = walks_program(

@@ -52,6 +52,11 @@ REASONS = {
         "table, fetched from the card, which is the host fold bit for bit "
         "(tests/test_torch_seeds.py, tests/test_torch_gpu.py); the host "
         "fold itself is native.bg_prob_table_native_fn",
+    "one end counts":
+        "splits the corpus between the card and the host; on the card's "
+        "machine a split never pays (the two shares draw on the same host "
+        "cores: README, \"The host+device co-count\"; PERF.md §6, PR 6), "
+        "so the port counts on one end, chosen by ops/hybrid.count_on_host",
     "TSan leg":
         "the race check of the native library: covered by the reference's "
         "slow TSan leg (tests/test_tsan.py) on the native source, which "
@@ -112,6 +117,12 @@ NOT_PORTED = {
     "ops/flat_tables.py:zscores_flat": "no caller",
     "ops/flat_tables.py:base_log_pvalues_flat": "no caller",
     "ops/hybrid.py:host_share_available": "non-native fallback",
+    "ops/hybrid.py:_env_f": "one end counts",
+    "ops/hybrid.py:_host_bases_s": "one end counts",
+    "ops/hybrid.py:_kernel_bases_s": "one end counts",
+    "ops/hybrid.py:split_index": "one end counts",
+    "ops/hybrid.py:HostShare": "one end counts",
+    "ops/hybrid.py:start_host_share": "one end counts",
     "ops/stream_count.py:stream_count_device": "no caller",
     "ops/stream_count.py:StreamCountJob": "no caller",
     "ops/stream_count.py:_susp_to_words": "u16 wire",
@@ -155,8 +166,7 @@ RENAMED = {
     "ops/counting.py:_packed_nbytes": "ops/counting.py::_unpack_codes",
     "ops/counting.py:_np_canonical_mask_flat":
         "ops/encoding.py::_np_canonical_mask",
-    "ops/hybrid.py:_host_bases_s": "ops/hybrid.py::_HOST_BASES_S",
-    "ops/hybrid.py:_kernel_bases_s": "ops/hybrid.py::_DEVICE_BASES_S",
+    "ops/hybrid.py:plan_device_fraction": "ops/hybrid.py::count_on_host",
     "ops/stream_count.py:stream_count_device_fused":
         "ops/stream_count.py::stream_shard_counts",
     "ops/stream_count.py:stream_count_device_fused2":

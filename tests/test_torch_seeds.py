@@ -1,16 +1,18 @@
 """The device engine's seed selection on the CPU
 (peng_motif_tpu_torch/engine.py, ``count.seeds``).
 
-Where the host sorts the whole table, the background table it reads is
-the stats program's, fetched from the device, and it must be the host
-fold (native.bg_prob_table_native_fn) bit for bit, on MafK_100seqs at -w
-4 to 12, with background orders 0 to 3, on both strands and on the plus
-strand.  Elsewhere the z-sort's large partitions run on the device
-(ops/seed_sort.py), and the prefix the seed walk reads must be the
-native zscore_sort_prefix's element for element: on tables made to
-stress it, on MafK_100seqs's z tables at -w 9 to 12, and in whole jobs,
-whose seeds and seed tables must be those of the whole-table host sort.
-The same checks on the card are in tests/test_torch_gpu.py
+The seeds read the stats program's z and expected on every table, and
+they must be the host's (native.bg_prob_table_native_fn for bgp,
+native.base_stats_native for expected and z) bit for bit, NaN at the
+same places, on MafK_100seqs's background at -w 4 to 12, with
+background orders 0 to 3, on both strands and on the plus strand.
+Where the host sorts the whole table it fetches them; elsewhere the
+z-sort's large partitions run on the device (ops/seed_sort.py), and the
+prefix the seed walk reads must be the native zscore_sort_prefix's
+element for element: on tables made to stress it, on MafK_100seqs's z
+tables at -w 9 to 12, and in whole jobs, whose seeds and seed tables
+must be those of the whole-table host sort.  The same checks on the card
+are in tests/test_torch_gpu.py
 (test_seeds_bgp_from_the_card_is_the_host_fold,
 test_seeds_z_and_prefix_from_the_card).
 """
@@ -29,13 +31,14 @@ from peng_motif_tpu_torch import cli, engine, pipeline
 from peng_motif_tpu_torch.io.fasta import load_sequence_set
 from peng_motif_tpu_torch.models.background import BackgroundModel
 from peng_motif_tpu_torch.native import (
+    base_stats_native,
     bg_prob_table_native_fn,
     count_rows_exact_native,
     seed_walk_prefix_native,
     select_patterns_walk_native,
     zscore_sort_prefix_indices,
 )
-from peng_motif_tpu_torch.ops import seed_sort
+from peng_motif_tpu_torch.ops import hybrid, seed_sort
 from peng_motif_tpu_torch.utils.logging_utils import PhaseTimer
 
 MAFK = os.path.join(GOLDEN_DIR, "MafK_100seqs.fasta")
@@ -54,44 +57,90 @@ def _host_fold(v, W, order, both):
         both)
 
 
+def _nan_table(v, counts):
+    """The NaN table of test_tables_the_host_sorts_whole: no G or T in
+    the order-0 background (bgp 0 beside them), and zero counts there in
+    places (z = 0 / 0)."""
+    v = [np.asarray(x, dtype=np.float32) for x in v]
+    v[0] = np.float32([0.5, 0.5, 0.0, 0.0])
+    counts = counts.copy()
+    counts[::7] = 0
+    return v, counts
+
+
+def _assert_same_bits(got, want, name):
+    assert got.dtype == want.dtype == np.float32, name
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan, err_msg=name)
+    np.testing.assert_array_equal(got[~nan].view(np.uint32),
+                                  want[~nan].view(np.uint32), err_msg=name)
+
+
 @pytest.mark.parametrize("both", [True, False], ids=["both", "plus"])
 @pytest.mark.parametrize("order", range(4))
 @pytest.mark.parametrize("W", range(4, 13))
 def test_seeds_bgp_is_the_host_fold(W, order, both, mafk_v):
+    """The stats program's bgp is the host fold, and its expected and z
+    are base_stats_native's over that bgp, bit for bit: on a nonzero
+    table, and on the NaN table."""
     k = min(W - 1, order)   # the engine's current_k
     v = mafk_v[order][: k + 1]
+    counts = np.random.default_rng(W).integers(0, 40, 4 ** W).astype(
+        np.int32)
     none = np.zeros(0, dtype=np.int32)
-    state = engine.resident_state(np.zeros(4 ** W, np.int32), 12_345, none,
-                                  none, v, "cpu")
-    got = engine.stats_program(state, W, k, k, both)["bgp"].numpy()
-    want = _host_fold(v, W, k, both)
-    assert got.dtype == want.dtype == np.float32
-    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    for name, (vt, ct) in (("nonzero", (v, counts)),
+                           ("nan", _nan_table(v, counts))):
+        state = engine.resident_state(ct, 12_345, none, none, vt, "cpu")
+        st = engine.stats_program(state, W, k, k, both)
+        got = st["bgp"].numpy()
+        want = _host_fold(vt, W, k, both)
+        assert got.dtype == want.dtype == np.float32
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32), err_msg=name)
+        expected, z = base_stats_native(ct, want, 12_345)
+        _assert_same_bits(st["expected"].numpy(), expected, name)
+        _assert_same_bits(st["z"].numpy(), z, name)
+        assert np.isnan(z).any() == (name == "nan")
 
 
 @pytest.mark.parametrize("strand", ["BOTH", "PLUS"])
 def test_seed_selection_reads_the_fetched_bgp(strand, monkeypatch,
                                               tmp_path, mafk_v):
-    """A whole -w 8 job: the table ``base_stats_native`` gets is the host
-    fold of the job's background, and the seeds' spans are recorded."""
-    seen = []
-    real = engine.base_stats_native
+    """A whole -w 8 job (the whole-table host sort): the prefix its
+    seeds were walked over is base_stats_native + the native z-sort over
+    the job's own table and the host fold of its background, and the
+    seeds' spans are recorded."""
+    seen = {}
+    real_phase, real_prefix = engine._count_phase, engine._seed_prefix
 
-    def spy(counts, bgp, ltot):
-        seen.append(np.array(bgp))
-        return real(counts, bgp, ltot)
+    def count_phase(*a, **k):
+        out = real_phase(*a, **k)
+        seen.update(counts=out[0].copy(), ltot=out[1])
+        return out
 
-    monkeypatch.setattr(engine, "base_stats_native", spy)
+    def seed_prefix(st, zthr):
+        seen.update(zthr=zthr, prefix=real_prefix(st, zthr))
+        return seen["prefix"]
+
+    monkeypatch.setattr(engine, "_count_phase", count_phase)
+    monkeypatch.setattr(engine, "_seed_prefix", seed_prefix)
     err = io.StringIO()
     argv = [MAFK, "-w", "8", "--strand", strand, "--device", "cpu",
             "--engine", "tpu", "-o", str(tmp_path / "o.meme"), "--timing"]
     with contextlib.redirect_stdout(io.StringIO()), \
             contextlib.redirect_stderr(err):
         assert cli.main(argv) == 0
-    (bgp,) = seen
-    want = _host_fold(mafk_v[2], 8, 2, strand == "BOTH")
-    np.testing.assert_array_equal(bgp.view(np.uint32), want.view(np.uint32))
-    for part in ("bgp", "stats", "sort", "walk"):
+    bgp = _host_fold(mafk_v[2], 8, 2, strand == "BOTH")
+    expected, z = base_stats_native(seen["counts"], bgp, seen["ltot"])
+    want, _keep = _native_prefix(z, seen["zthr"])
+    prefix = seen["prefix"]
+    assert len(want) > 1
+    np.testing.assert_array_equal(prefix.ids, want)
+    np.testing.assert_array_equal(prefix.z.view(np.uint32),
+                                  z[want].view(np.uint32))
+    np.testing.assert_array_equal(prefix.expected.view(np.uint32),
+                                  expected[want].view(np.uint32))
+    for part in ("fetch", "sort", "walk"):
         assert f"[TIMING] count.seeds.{part}: " in err.getvalue(), part
 
 
@@ -229,8 +278,7 @@ def test_tables_the_host_sorts_whole(case, mafk_v):
     counts = rng.integers(0, 40, n).astype(np.int32)
     v = [np.asarray(x, dtype=np.float32) for x in mafk_v[2]]
     if case == "nan":
-        v[0] = np.float32([0.5, 0.5, 0.0, 0.0])   # bgp 0 beside G, T
-        counts[::7] = 0
+        v, counts = _nan_table(v, counts)
     none = np.zeros(0, dtype=np.int32)
     state = engine.resident_state(counts, 40_000, none, none, v, "cpu")
     st = engine.stats_program(state, W, 2, 2, False)
@@ -243,11 +291,16 @@ def test_tables_the_host_sorts_whole(case, mafk_v):
         assert np.count_nonzero(z < np.float32(thr)) == 32
     assert seed_sort.device_keep(st["z"], thr) is None
     with PhaseTimer().activate() as rec:
-        got = engine._seed_prefix(st, counts, 40_000, thr)
+        got = engine._seed_prefix(st, thr)
     assert rec.counters["seeds.card_partitions"] == 0
-    assert rec.calls("bgp") == rec.calls("stats") == 1
+    assert rec.calls("fetch") == rec.calls("sort") == 1
     want, _ = _native_prefix(z, thr)
     np.testing.assert_array_equal(got.ids, want)
+    np.testing.assert_array_equal(got.z.view(np.uint32),
+                                  z[want].view(np.uint32))
+    np.testing.assert_array_equal(
+        got.expected.view(np.uint32),
+        st["expected"].numpy()[want].view(np.uint32))
 
 
 # -- MafK_100seqs jobs through the CLI, to their seeds ------------------------
@@ -267,16 +320,15 @@ class _Kept(PhaseTimer):
 
 def _job_to_seeds(W, strand, host_range=None):
     """A MafK_100seqs job on the device engine up to its seed table (the
-    count on the host, as the co-count's host share): its stdout, seeds,
-    recorder, and what the seed selection read and made."""
+    count forced onto the host, as the w12 cell counts): its stdout,
+    seeds, recorder, and what the seed selection read and made."""
     seen = {}
     real = engine._seed_prefix
 
-    def seed_prefix(st, counts, ltot, zthr):
+    def seed_prefix(st, zthr):
         seen.update(z=st["z"].numpy().copy(),
-                    expected=st["expected"].numpy().copy(),
-                    counts=counts.copy(), ltot=ltot, zthr=zthr)
-        seen["prefix"] = real(st, counts, ltot, zthr)
+                    expected=st["expected"].numpy().copy(), zthr=zthr)
+        seen["prefix"] = real(st, zthr)
         return seen["prefix"]
 
     def run_walks(counts, expected, bgp, seeds, *a, **k):
@@ -296,7 +348,7 @@ def _job_to_seeds(W, strand, host_range=None):
             "--engine", "tpu", "-o", os.devnull]
     _Kept.made.clear()
     with pytest.MonkeyPatch.context() as m:
-        m.setenv("PENG_HYBRID_DEVICE_FRAC", "0")
+        m.setattr(hybrid, "count_on_host", lambda *a: True)
         m.setattr(engine, "_seed_prefix", seed_prefix)
         m.setattr(engine, "run_walks", run_walks)
         m.setattr(pipeline, "process_gpu", process_gpu)
@@ -386,8 +438,8 @@ def test_job_seeds_are_the_host_sorts(W, strand):
     host = _job_to_seeds(W, strand, host_range=4 ** 13)
     assert host["recorder"].counters["seeds.card_partitions"] == 0
     assert job["recorder"].counters["seeds.card_partitions"] > 0
-    assert host["recorder"].calls("count.seeds.bgp") == 1
-    assert job["recorder"].calls("count.seeds.bgp") == 0
+    assert host["recorder"].calls("count.seeds.fetch") == 1
+    assert job["recorder"].calls("count.seeds.fetch") == 0
     assert job["seeds"] == host["seeds"] and job["seeds"]
     assert job["stdout"] == host["stdout"]
     assert "zscore" in job["stdout"]
@@ -404,4 +456,4 @@ def test_small_tables_count_no_device_partition(W, tmp_path):
             contextlib.redirect_stderr(err):
         assert cli.main(argv) == 0
     assert "[COUNT] seeds.card_partitions: 0\n" in err.getvalue()
-    assert "[TIMING] count.seeds.bgp: " in err.getvalue()
+    assert "[TIMING] count.seeds.fetch: " in err.getvalue()

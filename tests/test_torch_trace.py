@@ -22,6 +22,7 @@ from conftest import GOLDEN_DIR
 
 from bench_port import run as bench_run
 from peng_motif_tpu_torch import cli, engine
+from peng_motif_tpu_torch.ops import hybrid
 from peng_motif_tpu_torch.utils import logging_utils as lu
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -30,7 +31,7 @@ TOP = ("parse", "background", "count", "optimize", "replay", "pwm",
        "em+merge", "redundancy", "output")
 CHILDREN = ("count.stream", "count.enqueue", "count.bg_correct",
             "count.fetch", "count.fixup", "count.upload", "count.seeds",
-            "count.seeds.bgp", "count.seeds.stats", "count.seeds.sort",
+            "count.seeds.fetch", "count.seeds.sort",
             "count.seeds.walk", "optimize.step", "optimize.fetch", "pwm.adv", "pwm.em_round",
             "pwm.fetch", "em+merge.merge")
 READERS = ("parse_ms", "untraced_ms", "seed_select_ms", "replay_ms",
@@ -94,28 +95,27 @@ def test_span_paths_parents_and_disjoint_top_level(kept, tmp_path):
 
 def test_worker_thread_spans_have_the_span_that_started_them(
         kept, tmp_path, monkeypatch):
-    """The co-count's host share (forced here) and the lazy background
-    scan of the exact engine run on threads: their spans hang under the
-    span that started them, on their own thread."""
-    monkeypatch.setenv("PENG_HYBRID_DEVICE_FRAC", "0.5")
-    _, _, _, rec = _job(tmp_path)
-    (thread,) = [s for s in rec.spans if s.path == "count.host_thread"]
-    (join,) = [s for s in rec.spans if s.path == "count.host_join"]
-    (count,) = [s for s in rec.spans if s.path == "count"]
-    assert thread.parent == count.id and join.parent == count.id
-    assert thread.thread != count.thread
-    assert count.start_ns <= thread.start_ns <= thread.end_ns <= join.end_ns
-    # the host count's two parts, on the share's thread
-    for name in ("scan", "mirror"):
-        (part,) = [s for s in rec.spans
-                   if s.path == f"count.host_thread.{name}"]
-        assert part.parent == thread.id and part.thread == thread.thread
-        assert thread.start_ns <= part.start_ns <= part.end_ns <= thread.end_ns
+    """The lazy background scan of the exact engine runs on a thread: its
+    span hangs under the span that started it, on its own thread.  The
+    host count (forced here) runs on the main thread, under ``count``."""
     _, _, _, rec = _job(tmp_path, engine_flag="exact")
     (scan,) = [s for s in rec.spans if s.path == "background.bg_scan"]
     (bg,) = [s for s in rec.spans if s.path == "background"]
     assert scan.parent == bg.id and scan.thread != bg.thread
+    assert bg.start_ns <= scan.start_ns <= scan.end_ns
     assert [s.path for s in rec.spans if s.path.endswith(".bg_wait")]
+    monkeypatch.setattr(hybrid, "count_on_host", lambda *a: True)
+    _, _, _, rec = _job(tmp_path)
+    (host,) = [s for s in rec.spans if s.path == "count.host"]
+    (count,) = [s for s in rec.spans if s.path == "count"]
+    assert host.parent == count.id and host.thread == count.thread
+    assert count.start_ns <= host.start_ns <= host.end_ns <= count.end_ns
+    # the host count's two parts, inside it
+    for name in ("scan", "mirror"):
+        (part,) = [s for s in rec.spans if s.path == f"count.host.{name}"]
+        assert part.parent == host.id and part.thread == host.thread
+        assert host.start_ns <= part.start_ns <= part.end_ns <= host.end_ns
+    assert not [s for s in rec.spans if s.thread != count.thread]
 
 
 def test_every_timing_line_parses_and_every_reader_reads(tmp_path):
@@ -216,28 +216,39 @@ def test_output_is_the_same_with_timing_and_profile(engine_flag, tmp_path,
 
 
 def test_profile_trace_holds_every_span(kept, tmp_path, monkeypatch):
-    """A range for every main-thread span (its own record_function), and
-    the host share's thread span added at export inside its parent's."""
-    monkeypatch.setenv("PENG_HYBRID_DEVICE_FRAC", "0.5")
-    _, _, _, rec = _job(tmp_path, "--profile", str(tmp_path / "p"))
-    with open(tmp_path / "p" / "trace.json") as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("ph") == "X"]
-    names = {e["name"] for e in events}
-    home = threading.get_native_id()
-    for s in rec.spans:
-        if s.thread == home:
-            assert s.path in names, s.path
-    assert {s.path for s in rec.spans if s.traced} >= set(TOP)
+    """A range for every main-thread span (its own record_function): the
+    host count's (forced here) among them; and a worker thread's span,
+    the exact engine's lazy background scan, added at export inside its
+    parent's."""
+    def trace(rec, where):
+        with open(tmp_path / where / "trace.json") as f:
+            events = [e for e in json.load(f)["traceEvents"]
+                      if e.get("ph") == "X"]
+        names = {e["name"] for e in events}
+        home = threading.get_native_id()
+        for s in rec.spans:
+            if s.thread == home:
+                assert s.path in names, s.path
+        return events
 
-    def interval(name):
+    def interval(events, name):
         (e,) = [e for e in events if e["name"] == name
                 and e.get("cat") == "user_annotation"]
         return e["ts"], e["ts"] + e["dur"]
 
-    count, thread = interval("count"), interval("count.host_thread")
+    monkeypatch.setattr(hybrid, "count_on_host", lambda *a: True)
+    _, _, _, rec = _job(tmp_path, "--profile", str(tmp_path / "p"))
+    events = trace(rec, "p")
+    assert {s.path for s in rec.spans if s.traced} >= set(TOP)
+    count, host = interval(events, "count"), interval(events, "count.host")
+    assert count[0] <= host[0] <= host[1] <= count[1]
+    _, _, _, rec = _job(tmp_path, "--profile", str(tmp_path / "q"),
+                        engine_flag="exact")
+    events = trace(rec, "q")
+    bg = interval(events, "background")
+    scan = interval(events, "background.bg_scan")
     slack = 50.0                  # us: the anchor's read of two clocks
-    assert count[0] - slack <= thread[0] <= thread[1] <= count[1] + slack
+    assert bg[0] - slack <= scan[0] <= scan[1]
 
 
 def test_recorder_helpers_count_device_transfers():
