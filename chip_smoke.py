@@ -48,7 +48,13 @@ caught):
                count (f64 "wide" chain, ltot >= 2**24): the walk trace's
                integer fields identical, its floats within 1e-6 relative
                (scores 2e-6 + 2e-5), the adv-PWMs bit-identical, the EM
-               PWMs within 5e-6 with identical iteration counts;
+               PWMs within 5e-6 with identical iteration counts; then
+               EM's round kernel (csrc/em.cu) against the plain torch
+               round on the card, on the EM inputs of MafK jobs at -w 10
+               (17 motifs) and -w 12 (16): identical iterations, PWM
+               cells within 5e-6, two kernel calls bit-identical, the
+               kernel's device time a round (profiler) and both rounds'
+               walls a round (in turns) beside the bytes' bound;
   7. exact   — the exact engine (--engine exact --device cuda): MafK -w 8,
                -w 10 and MafK_100seqs -w 12 with the host count (within
                tolerance of the golden files; byte-identity printed) and
@@ -189,6 +195,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "golden")
 KERNEL_SOURCE = "peng_motif_tpu_torch/csrc/histogram.cu"
 KERNEL_REPLACES = "peng_motif_tpu/ops/pallas_hist.py:261"
+EM_SOURCE = "peng_motif_tpu_torch/csrc/em.cu"
 TOL_ABS, TOL_REL = 5e-6, 1e-6
 
 
@@ -551,6 +558,91 @@ def run_chain(inp, dev):
             walls["em"] = time.perf_counter() - t0
             out["em"] = (final.cpu().numpy(), iters.cpu().numpy())
     return walls, out
+
+
+def run_em_phase(tmp, dev):
+    """Phase 6's EM half: the round kernel against the plain torch round
+    on the inputs of MafK jobs at the cells' widths.  Returns the numbers
+    by width for the kernels' JSON record."""
+    import numpy as np
+    import torch
+
+    from peng_motif_tpu_torch import engine
+    from peng_motif_tpu_torch.ops import em
+
+    fns = {"kernel": em.em_optimize_flat_kernel,
+           "plain": em.em_optimize_flat_plain}
+    out = {}
+    with phase("em: the round kernel against the plain torch round"):
+        for W in (10, 12):
+            calls = []
+            real = engine.em_optimize_flat
+
+            def record(*a, calls=calls, real=real):
+                calls.append(a)
+                return real(*a)
+
+            engine.em_optimize_flat = record
+            try:
+                run_cli([os.path.join(GOLDEN, "MafK.fasta"), "-w", str(W),
+                         "--device", "cuda", "--engine", "tpu", "-o",
+                         os.path.join(tmp, f"em_w{W}.meme")])
+            finally:
+                engine.em_optimize_flat = real
+            (args,) = calls
+            assert args[0].device.type == "cuda" and args[-1] == W
+            res, walls = {}, {"kernel": [], "plain": []}
+            # the first run of each is a warm-up; then kernel, plain,
+            # plain, kernel
+            for label in ("kernel", "plain", "kernel", "plain", "plain",
+                          "kernel"):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                pwm, it = fns[label](*args)
+                torch.cuda.synchronize(dev)
+                wall = time.perf_counter() - t0
+                if label in res:
+                    walls[label].append(wall)
+                    if label == "kernel":
+                        assert torch.equal(pwm, res[label][0]), \
+                            f"w{W}: two kernel calls differ"
+                res.setdefault(label, (pwm, it))
+            (kp, ki), (pp, pi) = res["kernel"], res["plain"]
+            assert torch.equal(ki, pi), f"w{W}: EM iterations differ"
+            err = float((kp - pp).abs().max())
+            assert err <= TOL_ABS, f"w{W}: EM PWMs {err} apart"
+            rounds = int(ki.max())
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                em.em_optimize_flat_kernel(*args)
+                torch.cuda.synchronize(dev)
+            device_us = {"em_round_kernel": 0.0, "em_tail_kernel": 0.0}
+            for e in prof.key_averages():
+                for name in device_us:
+                    if name in e.key:
+                        device_us[name] += e.device_time_total
+            bound_ms = 8 * 4 ** W / 3.35e12 * 1e3
+            rec = dict(
+                motifs=int(args[0].shape[0]), rounds=rounds,
+                iterations=ki.tolist(), max_abs_err=err,
+                kernel_wall_ms=median(walls["kernel"]) * 1e3 / rounds,
+                plain_wall_ms=median(walls["plain"]) * 1e3 / rounds,
+                kernel_device_ms={k: v / 1e3 / rounds
+                                  for k, v in device_us.items()},
+                bound_ms=bound_ms)
+            dev_ms = sum(rec["kernel_device_ms"].values())
+            print(f"  w{W}: {rec['motifs']} motifs, {rounds} rounds "
+                  f"{rec['iterations']}; a round: kernel "
+                  f"{rec['kernel_wall_ms']:.4f} ms wall (device: round "
+                  f"{rec['kernel_device_ms']['em_round_kernel']:.4f} + tail "
+                  f"{rec['kernel_device_ms']['em_tail_kernel']:.4f} ms, "
+                  f"{100 * bound_ms / dev_ms:.1f}% of the {bound_ms:.4f} ms "
+                  f"bound of 8 B an id), plain torch round "
+                  f"{rec['plain_wall_ms']:.4f} ms wall; PWMs within "
+                  f"{err:.3g}, iterations identical", flush=True)
+            assert dev_ms > 0, f"w{W}: the profiler saw no EM kernel"
+            out[f"w{W}"] = rec
+    return out
 
 
 def fmt_walls(walls):
@@ -2366,6 +2458,7 @@ def main() -> int:
                   "tolerance; adv-PWMs bit-identical; EM within 5e-6, "
                   "same iterations", flush=True)
 
+    em_rec = run_em_phase(big.name, dev)
     exact = run_exact_phase(big.name, fasta)
     max_err = max(max_err, exact["max_abs_err"])
     mesh = run_mesh_phase(big.name, fasta, dev, n_bases)
@@ -2403,7 +2496,11 @@ def main() -> int:
     # card_launches: the main path's launches by card index; cards (null
     # on one card): the multi-card phase's launches by card of each run
     # (the --devices main path's run in cli_launches), the kernel on each
-    # card's own inputs, and every rank's report of the NCCL jobs
+    # card's own inputs, and every rank's report of the NCCL jobs;
+    # em_round: EM's round kernel on MafK's w10 / w12 EM inputs (motifs,
+    # rounds, iterations, the kernel's and the plain torch round's wall a
+    # round, the kernel's device ms a round by kernel, the bound of 8 B an
+    # id at 3.35 TB/s)
     print(json.dumps({"kernels": [{
         "name": "histogram", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,
@@ -2417,7 +2514,10 @@ def main() -> int:
         "exact_library_ms": exact["library_ms"],
         "mesh": mesh, "processes": procs,
         "entry_launches": entry["entry_launches"], "entry": entry["entry"],
-        "hybrid": hybrid, "cards": cards}]}), flush=True)
+        "hybrid": hybrid, "cards": cards}, {
+        "name": "em_round", "route": "cuda", "source": EM_SOURCE,
+        "replaces": "the torch round of ops/em.py (no Pallas kernel)",
+        **em_rec}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

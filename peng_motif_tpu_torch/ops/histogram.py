@@ -17,9 +17,10 @@ inputs' device) the counts are added into it and nothing is allocated.
 plain PyTorch version, :func:`histogram_plain`, only for tensors on the
 CPU.  :func:`plan` is the dispatcher: from ``n_bins`` and ``N`` alone it
 chooses the tier (sub-histograms in shared memory, or reductions in L2)
-and the bin ranges, one launch each.  The kernel library is built with
-nvcc at the first CUDA call (and again when the source is newer); a
-missing nvcc, a failed build or a refused launch raises.
+and the bin ranges, one launch each.  The kernel library (this kernel and
+EM's round, ``csrc/em.cu``, in one nvcc call) is built at the first CUDA
+call (and again when a source is newer); a missing nvcc, a failed build
+or a refused launch raises.
 """
 
 from __future__ import annotations
@@ -36,8 +37,10 @@ import torch
 from ..native import BUILD_DIR, compile_library
 from ..utils.logging_utils import span
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "csrc", "histogram.cu")
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "csrc")
+_SRCS = tuple(os.path.join(_CSRC, name)
+              for name in ("histogram.cu", "em.cu"))
 _SO = os.path.join(BUILD_DIR, "libpeng_kernels.so")
 
 # kernel launches made by :func:`histogram` (one per launch, nowhere
@@ -116,7 +119,8 @@ def _nvcc() -> str:
 
 
 def build_kernels() -> ctypes.CDLL:
-    """Build (if stale) and load the kernel library; raises on failure.
+    """Build (if stale) and load the kernel library (``peng_histogram``
+    and ``peng_em_round``); raises on failure.
     ``BUILD_LOG`` keeps the compiler's report (registers, shared memory,
     spills from ``-Xptxas -v``) of the build this process ran."""
     global _lib, BUILD_LOG
@@ -124,7 +128,7 @@ def build_kernels() -> ctypes.CDLL:
         return _lib
     with _lock, span("lib.histogram"):
         if _lib is None:
-            log = compile_library(_SRC, _SO, [
+            log = compile_library(_SRCS, _SO, [
                 _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                 "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                 "-Xptxas", "-v"])
@@ -136,6 +140,10 @@ def build_kernels() -> ctypes.CDLL:
                 ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
                 ctypes.c_void_p]
             lib.peng_histogram.restype = ctypes.c_int
+            lib.peng_em_round.argtypes = [ctypes.c_void_p] * 8 + [
+                ctypes.c_int32, ctypes.c_int32, ctypes.c_float,
+                ctypes.c_float, ctypes.c_int32, ctypes.c_void_p]
+            lib.peng_em_round.restype = ctypes.c_int
             _lib = lib
         return _lib
 
@@ -182,17 +190,21 @@ def histogram_plain(ids: torch.Tensor, inc: torch.Tensor, n_bins: int,
     return out
 
 
+def on_device(device: torch.device):
+    """The kernels launch on the current device: a context that makes
+    ``device`` current, switching only if it differs."""
+    if torch.cuda.current_device() == device.index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 def launch_plan(ids: torch.Tensor, inc: torch.Tensor, n_bins: int,
                 out: torch.Tensor, p: Plan) -> None:
     """Add the counts into ``out`` with one kernel launch per bin range
     of ``p``; ``inc`` is uint8 here.  Raises on the first refused launch."""
     global LAUNCHES
     lib = build_kernels()
-    # the kernels launch on the current device: switch only if it differs
-    guard = (contextlib.nullcontext()
-             if torch.cuda.current_device() == ids.device.index
-             else torch.cuda.device(ids.device))
-    with guard:
+    with on_device(ids.device):
         stream = torch.cuda.current_stream(ids.device).cuda_stream
         for lo, hi in p.ranges:
             err = lib.peng_histogram(

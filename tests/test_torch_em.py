@@ -32,6 +32,8 @@ from peng_motif_tpu.ops import flat_tables as jft
 from peng_motif_tpu_torch import engine as teng
 from peng_motif_tpu_torch.native import em_optimize_native
 from peng_motif_tpu_torch.ops import em as tem
+from peng_motif_tpu_torch.ops import histogram as th
+from peng_motif_tpu_torch.utils.logging_utils import PhaseTimer
 
 
 def _count_state(W, seed, order):
@@ -191,6 +193,41 @@ def test_em_no_motifs():
                                    torch.from_numpy(counts),
                                    torch.from_numpy(bg), 1e4, 0.08, 10, 4)
     assert pwm.shape == (0, 4, 4) and it.shape == (0,)
+
+
+def test_em_off_cuda_is_the_plain_round_and_launches_nothing(monkeypatch):
+    """On CPU tensors em_optimize_flat is the plain torch round: the same
+    bits as em_optimize_flat_plain, no kernel library asked for, no
+    launch, and ``em.kernel_rounds`` registered as 0."""
+    pwms, counts, bg = _em_inputs()
+    W = pwms.shape[1]
+
+    def no_library():
+        raise AssertionError("the kernel library was asked for")
+
+    monkeypatch.setattr(tem, "build_kernels", no_library)
+    before = (tem.LAUNCHES, th.LAUNCHES)
+    args = (torch.from_numpy(pwms), torch.from_numpy(counts),
+            torch.from_numpy(bg), 1e4, 0.08, 10, W)
+    with PhaseTimer().activate() as rec:
+        got, got_it = tem.em_optimize_flat(*args)
+    want, want_it = tem.em_optimize_flat_plain(*args)
+    assert torch.equal(got, want) and torch.equal(got_it, want_it)
+    assert (tem.LAUNCHES, th.LAUNCHES) == before
+    assert rec.counters["em.kernel_rounds"] == 0
+    assert rec.calls("em_round") == int(got_it.max()) > 0
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_em_kernel_takes_only_cuda_tensors(device):
+    """The kernel's wrapper refuses a tensor off CUDA before it asks for
+    the library; the dispatcher never hands it one."""
+    pwms, counts, bg = _em_inputs()
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        tem.em_optimize_flat_kernel(
+            torch.from_numpy(pwms).to(device),
+            torch.from_numpy(counts).to(device),
+            torch.from_numpy(bg).to(device), 1e4, 0.08, 10, pwms.shape[1])
 
 
 def _em_inputs_at_scale(W=10, planted=8, total=51_000_000, seed=23):

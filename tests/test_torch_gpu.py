@@ -835,23 +835,150 @@ def test_stats_and_adv_pwm_on_card_match_cpu(both, wide, cuda):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("W", [8, 10])
-def test_em_on_card_matches_cpu(W, cuda):
-    rng = np.random.default_rng(W)
-    n = 4 ** W
-    counts = rng.poisson(20, size=n).astype(np.float32)
-    counts[rng.integers(0, n, size=50)] += 2000
-    bg = np.full(n, 2.0 / n, np.float32)
-    pwms = rng.dirichlet(np.ones(4), size=(12, W)).astype(np.float32)
-    outs = {}
-    for d in (cuda, "cpu"):
-        pwm, it = tem.em_optimize_flat(
-            torch.from_numpy(pwms).to(d), torch.from_numpy(counts).to(d),
-            torch.from_numpy(bg).to(d), 1e4, 0.08, 10, W)
-        outs[str(d)] = (pwm.cpu().numpy(), it.cpu().numpy())
-    np.testing.assert_array_equal(outs[str(cuda)][1], outs["cpu"][1])
-    np.testing.assert_allclose(outs[str(cuda)][0], outs["cpu"][0], rtol=0,
+@pytest.fixture(scope="module")
+def mafk_em_args(tmp_path_factory):
+    """``args(W)``: the em_optimize_flat arguments of one MafK job at -w
+    W on the card (its adv-PWMs, stats_program counts and bg_max, and the
+    job's s, threshold and iteration cap), one job a width."""
+    cache = {}
+
+    def args(W):
+        if W not in cache:
+            calls = []
+            real = engine.em_optimize_flat
+
+            def em_optimize_flat(*a):
+                calls.append(a)
+                return real(*a)
+
+            out = tmp_path_factory.mktemp("em") / "o.meme"
+            argv = [os.path.join(GOLDEN_DIR, "MafK.fasta"), "-w", str(W),
+                    "--engine", "tpu", "-o", str(out)]
+            with pytest.MonkeyPatch.context() as m, \
+                    contextlib.redirect_stdout(io.StringIO()), \
+                    contextlib.redirect_stderr(io.StringIO()):
+                m.setattr(engine, "em_optimize_flat", em_optimize_flat)
+                assert main(argv) == 0
+            (cache[W],) = calls
+        return cache[W]
+
+    return args
+
+
+def _em_case(source, W, A, dev, mafk_em_args):
+    """(pwms, counts, bg, s, thr, max_it) on ``dev``: a random table
+    (Poisson counts with planted peaks, uniform bg) or MafK's own tables;
+    MafK's adv-PWMs first, then random PWMs up to A motifs.  On the
+    random table a batch's first motif is uniform: at W >= 10 it stops
+    after one round while the others go on."""
+    rng = np.random.default_rng(1000 * W + A)
+    pwms = rng.dirichlet(np.ones(4), size=(A, W)).astype(np.float32)
+    if source == "random":
+        if A > 1:
+            pwms[0] = 0.25
+        n = 4 ** W
+        counts = rng.poisson(20, size=n).astype(np.float32)
+        counts[rng.integers(0, n, size=n // 512)] += 2000
+        counts = torch.from_numpy(counts).to(dev)
+        bg = torch.from_numpy(np.full(n, 2.0 / n, np.float32)).to(dev)
+        return torch.from_numpy(pwms).to(dev), counts, bg, 1e4, 0.08, 10
+    pwm0, counts, bg, s, thr, max_it, length = mafk_em_args(W)
+    assert length == W and counts.device.type == "cuda"
+    k = min(A, pwm0.shape[0])
+    pwms = torch.cat([pwm0[:k].cpu(), torch.from_numpy(pwms[k:])])
+    return pwms.to(dev), counts.to(dev), bg.to(dev), s, thr, max_it
+
+
+@pytest.mark.parametrize("A", [1, 12, 16, 17])
+@pytest.mark.parametrize("source", ["random", "mafk"])
+@pytest.mark.parametrize("W", [8, 10, 12])
+def test_em_on_card_matches_cpu(W, source, A, cuda, mafk_em_args):
+    """The round kernel (csrc/em.cu) against the plain torch round on the
+    CPU: the same iterations, PWM cells within 5e-6 (the marginals are
+    summed in another order); two calls bit-identical (no float atomics);
+    ``em.kernel_rounds`` and the wrapper's launches (two a round), and no
+    histogram launch.  Where A > 1, a motif stops while others go on."""
+    pwms, counts, bg, s, thr, max_it = _em_case(source, W, A, cuda,
+                                                mafk_em_args)
+    runs = []
+    for _ in range(2):
+        before, hist = tem.LAUNCHES, th.LAUNCHES
+        with PhaseTimer().activate() as rec:
+            runs.append(tem.em_optimize_flat(pwms, counts, bg, s, thr,
+                                             max_it, W))
+        rounds = int(runs[-1][1].max())
+        assert rec.counters["em.kernel_rounds"] == rounds > 0
+        assert rec.calls("em_round") == rounds
+        assert tem.LAUNCHES - before == 2 * rounds
+        assert th.LAUNCHES == hist
+    (pwm, it), (again, it2) = runs
+    assert torch.equal(pwm, again) and torch.equal(it, it2)
+    want, want_it = tem.em_optimize_flat(pwms.cpu(), counts.cpu(), bg.cpu(),
+                                         s, thr, max_it, W)
+    np.testing.assert_array_equal(it.cpu().numpy(), want_it.numpy())
+    np.testing.assert_allclose(pwm.cpu().numpy(), want.numpy(), rtol=0,
                                atol=5e-6)
+    if A > 1:
+        assert int(it.min()) < int(it.max())
+
+
+@pytest.mark.parametrize("source", ["random", "mafk"])
+@pytest.mark.parametrize("W", [10, 12])
+def test_em_kernel_motifs_do_not_see_each_other(W, source, cuda,
+                                                mafk_em_args):
+    """A motif's PWM and iterations from the kernel are the same bits
+    whatever motifs run beside it (every sum of the round is the motif's
+    own): the first A of 17 motifs, run alone, are the 17-motif run's
+    first rows."""
+    pwms, counts, bg, s, thr, max_it = _em_case(source, W, 17, cuda,
+                                                mafk_em_args)
+    pwm, it = tem.em_optimize_flat(pwms, counts, bg, s, thr, max_it, W)
+    for A in (1, 12, 16):
+        sub, sub_it = tem.em_optimize_flat(pwms[:A], counts, bg, s, thr,
+                                           max_it, W)
+        assert torch.equal(sub, pwm[:A]) and torch.equal(sub_it, it[:A])
+
+
+def test_em_zero_count_rows_give_nan_on_card(cuda):
+    """A table of zero counts: every row 0/0, so every PWM cell NaN and
+    every motif stops after one round, as in the plain round."""
+    rng = np.random.default_rng(4)
+    W = 4
+    pwms = torch.from_numpy(
+        rng.dirichlet(np.ones(4), size=(4, W)).astype(np.float32))
+    counts = torch.zeros(4 ** W)
+    bg = torch.full((4 ** W,), 2.0 / 4 ** W)
+    got, got_it = tem.em_optimize_flat(pwms.to(cuda), counts.to(cuda),
+                                       bg.to(cuda), 1e4, 0.08, 10, W)
+    want, want_it = tem.em_optimize_flat(pwms, counts, bg, 1e4, 0.08, 10, W)
+    assert torch.isnan(got).all() and torch.isnan(want).all()
+    assert torch.equal(got_it.cpu(), want_it) and int(want_it.max()) == 1
+
+
+def test_em_kernel_without_rounds_launches_nothing(cuda):
+    """No motif, no iteration allowed, or a threshold no change exceeds
+    (W = 4 <= 5.0): the PWMs come back as given with 0 iterations, as
+    from the plain round, and nothing is launched or read."""
+    rng = np.random.default_rng(5)
+    W = 4
+    pwms = torch.from_numpy(
+        rng.dirichlet(np.ones(4), size=(3, W)).astype(np.float32))
+    counts = torch.from_numpy(rng.poisson(20, size=4 ** W).astype(np.float32))
+    bg = torch.full((4 ** W,), 2.0 / 4 ** W)
+    for p, max_it, thr in ((pwms[:0], 10, 0.08), (pwms, 0, 0.08),
+                           (pwms, 10, 5.0)):
+        before = tem.LAUNCHES
+        with PhaseTimer().activate() as rec:
+            got, got_it = tem.em_optimize_flat(p.to(cuda), counts.to(cuda),
+                                               bg.to(cuda), 1e4, thr, max_it,
+                                               W)
+        want, want_it = tem.em_optimize_flat(p, counts, bg, 1e4, thr, max_it,
+                                             W)
+        assert tem.LAUNCHES == before and rec.counters.get("syncs", 0) == 0
+        assert rec.counters["em.kernel_rounds"] == 0
+        assert torch.equal(got.cpu(), want) and torch.equal(got_it.cpu(),
+                                                            want_it)
+        assert torch.equal(want, p) and not want_it.any()
 
 
 # -- the recorder's counters against the card's own account ----------------

@@ -38,7 +38,7 @@ READERS = ("parse_ms", "untraced_ms", "seed_select_ms", "replay_ms",
            "climb_step_ms", "climb_steps_per_job", "em_rounds_per_job",
            "redundancy_ms", "host_syncs_per_job", "h2d_copies_per_job",
            "h2d_mb_per_job", "climb_graph_steps_per_job", "seed_sort_ms",
-           "seed_card_partitions_per_job")
+           "seed_card_partitions_per_job", "em_kernel_rounds_per_job")
 
 
 class _Kept(lu.PhaseTimer):
@@ -156,10 +156,11 @@ def test_report_is_the_last_output_and_short(engine_flag, tmp_path):
     assert all(ln.startswith(("[TIMING] ", "[COUNT] ")) for ln in lines)
     kinds = [ln.split()[0] for ln in lines]
     assert kinds == sorted(kinds, key=lambda k: k != "[TIMING]")
-    # the device engine's seeds and climb add their counters (the seeds'
-    # 0 where the host sorts the whole table, the climb's 0 off CUDA)
-    device = (["[COUNT] seeds.card_partitions", "[COUNT] climb.graph_steps"]
-              if engine_flag == "tpu" else [])
+    # the device engine's seeds, climb and EM add their counters (the
+    # seeds' 0 where the host sorts the whole table, the climb's and EM's
+    # 0 off CUDA)
+    device = (["[COUNT] seeds.card_partitions", "[COUNT] climb.graph_steps",
+               "[COUNT] em.kernel_rounds"] if engine_flag == "tpu" else [])
     assert [ln.split(":")[0] for ln in lines if ln.startswith("[COUNT]")] \
         == ["[COUNT] syncs", "[COUNT] h2d.copies", "[COUNT] h2d.bytes"] \
         + device
@@ -201,6 +202,20 @@ def test_em_rounds_are_the_em_loops_rounds(kept, tmp_path, monkeypatch):
     # the still-active motifs iterate together: the rounds are the
     # longest motif's iterations
     assert rec.calls("pwm.em_round") == int(it.max()) > 0
+
+
+def test_em_kernel_rounds_read_zero_off_cuda(tmp_path):
+    """Off CUDA EM runs the plain round: ``--timing`` prints
+    ``em.kernel_rounds`` as 0, and the benchmark's reader reads 0 while
+    the job ran EM rounds."""
+    argv = [MAFK, "-w", "8", "--device", "cpu", "--engine", "tpu", "-o",
+            str(tmp_path / "o.meme"), "--timing"]
+    job = bench_run.run_job(cli.main, engine, argv, {}, "cpu")
+    assert job["rc"] == 0
+    assert "[COUNT] em.kernel_rounds: 0\n" in job["stderr"]
+    rec = {"jobs": [job]}
+    assert bench_run.reader(REPO, "em_kernel_rounds_per_job")(rec) == 0.0
+    assert bench_run.reader(REPO, "em_rounds_per_job")(rec) > 0
 
 
 @pytest.mark.parametrize("engine_flag", ["tpu", "exact"])
