@@ -13,7 +13,9 @@ in ``bench_port/metrics/<metric>.py`` and the cell's limits in
 
 A run: the CUDA context; the corpus, made from the seed and written
 once; the traffic's set-up (a checkpoint) and its warm-up jobs, the
-first of which builds the port's libraries in the checkout; then jobs
+first of which builds the port's libraries in the checkout (the jobs
+before the window are kept, and the process's age taken between the
+steps, for the set-up's split); then jobs
 one after another for ``--seconds`` (a closed loop), each one timed on
 the host clock.  With ``--trace 1`` a few more whole jobs run under
 torch.profiler.  After that, with the program's state freed, the plain
@@ -32,6 +34,7 @@ import importlib.util
 import io
 import json
 import os
+import statistics
 import sys
 import tempfile
 import time
@@ -203,6 +206,32 @@ def window_summary(jobs) -> str:
             + " ms")
 
 
+def setup_summary(marks, context_s, warmup, jobs, n=40) -> str:
+    """One line on the set-up: the process ages at its marks, the
+    harness's CUDA context, and the process's first job against the
+    window's: its wall, and the span paths that took at least 1 ms longer
+    than their median over the window's jobs, the longest first (a path
+    no window job has counts 0 there; ``setup.import`` lies before the
+    job and is given apart)."""
+    line = ("set-up marks (s from process start): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in marks.items())
+            + f"; context {context_s * 1e3:.1f} ms")
+    if not warmup or not jobs:
+        return line
+    first = warmup[0]["phases"]
+    med = {p: statistics.median([j["phases"].get(p, 0.0) for j in jobs])
+           for p in first}
+    cold = sorted(((first[p] - med[p], p) for p in first
+                   if p != "setup.import" and first[p] - med[p] >= 1e-3),
+                  reverse=True)[:n]
+    return (line + f"; first job wall {warmup[0]['wall'] * 1e3:.1f} ms "
+            f"(window median "
+            f"{statistics.median(j['wall'] for j in jobs) * 1e3:.1f}), "
+            f"setup.import {first.get('setup.import', float('nan')) * 1e3:.1f}"
+            " ms; first job less window median (ms): "
+            + ", ".join(f"{p} {d * 1e3:+.1f}" for d, p in cold))
+
+
 def card_limits() -> str:
     """The card's name and power limit, as nvidia-smi reads them."""
     import subprocess
@@ -220,13 +249,17 @@ def card_limits() -> str:
 
 
 def run(cell: dict, seed: int, seconds: float, trace: bool, device: str,
-        workdir: str, hooks=None, control: bool = False) -> dict:
+        workdir: str, hooks=None, control: bool = False,
+        record: dict = None, marks: dict = None) -> dict:
     """One run of ``cell`` in ``workdir``; returns the result line's
     object.  ``hooks`` (tests): a context manager entered around the
     window, for planting a fault under the timed path.  ``control``
     (``bench_port.control``): also the control's readings, under
     ``"control"``, and whether they pass the same limits, under
-    ``"control_correct"``."""
+    ``"control_correct"``.  ``record`` (tests): a dict the run's record,
+    which the readers read, is copied into.  ``marks``: the process's
+    ages at the steps before the run (:func:`main`'s), which the run's
+    own marks follow."""
     import torch
 
     from peng_motif_tpu_torch import engine
@@ -236,12 +269,18 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device: str,
 
     from . import checks
 
+    marks = dict(marks or {}, imports=process_age())
     log = lambda *a: print(*a, file=sys.stderr, flush=True)  # noqa: E731
     on_card = device.startswith("cuda")
+    t0 = time.perf_counter()
     if on_card:
         torch.zeros(1, device=device)
         torch.cuda.synchronize()
+    context_s = time.perf_counter() - t0
+    marks["context"] = process_age()
+    if on_card:
         log(f"card: {card_limits()}")
+    marks["card"] = process_age()
     logging_utils.get_logger().handlers[0].setStream(_Stderr())
     config, traffic = cell["config"], cell["traffic"]
     root = cell["root"]
@@ -256,6 +295,7 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device: str,
 
     expect = traffic["expect"]
     checkpoint = None
+    warmup = []             # the jobs before the window, in the order run
     if traffic.get("checkpoint"):
         checkpoint = os.path.join(workdir, "checkpoint")
         argv = job_argv({"argv": traffic["argv"]}, 0, fasta,
@@ -265,6 +305,8 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device: str,
         if job["rc"] != 0:
             raise RuntimeError(f"set-up job failed: {job['exc']} "
                                f"{job['stderr']}")
+        warmup.append(job)
+    marks["corpus"] = process_age()
     capture = Capture(engine)
 
     def one(i, name):
@@ -280,6 +322,10 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device: str,
             if job["rc"] != 0:
                 raise RuntimeError(f"warm-up job failed: {job['exc']} "
                                    f"{job['stderr']}")
+            # kept without its table, which the check does not read
+            warmup.append({k: v for k, v in job.items() if k != "count"})
+            if i == 0:
+                marks["first_warmup"] = process_age()
         if on_card:
             torch.cuda.synchronize()
         setup_s = process_age()
@@ -296,6 +342,7 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device: str,
             window_s = time.perf_counter() - start
             launches = histogram.LAUNCHES - launches0
             log(window_summary(jobs))
+            log(setup_summary(marks, context_s, warmup, jobs))
             traced = None
             if trace:
                 from . import tracing
@@ -318,7 +365,10 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device: str,
 
     kind = torch.cuda.get_device_name(device) if on_card else "cpu"
     rec = dict(jobs=jobs, window_s=window_s, setup_s=setup_s,
-               launches=launches, trace=traced, device_kind=kind)
+               launches=launches, trace=traced, device_kind=kind,
+               warmup=warmup, setup_marks=marks, context_s=context_s)
+    if record is not None:
+        record.update(rec)
     t0 = time.perf_counter()
     checked_jobs = jobs + (traced["jobs"] if traced else [])
     numbers = checks.check(cell, fasta, checked_jobs, checkpoint, device,
@@ -360,12 +410,16 @@ def main(argv=None) -> int:
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = ap.parse_args(argv)
+    marks = {"main": process_age()}
 
     cell = load_cell(args.workload)
     import torch
 
+    marks["torch"] = process_age()
     chips = cell["cell"].get("chips", 1)
-    if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
+    found = torch.cuda.is_available() and torch.cuda.device_count()
+    marks["cuda_check"] = process_age()
+    if found < chips:
         print(f"error: the cell needs {chips} CUDA device(s); "
               f"torch.cuda.is_available() is {torch.cuda.is_available()}, "
               f"{torch.cuda.device_count()} found", file=sys.stderr)
@@ -376,11 +430,12 @@ def main(argv=None) -> int:
         print(f"error: the program is not in this checkout: {e}",
               file=sys.stderr)
         return 2
+    marks["program"] = process_age()
     tmp = tempfile.mkdtemp(prefix="bench_port_",
                            dir=os.environ.get("TMPDIR"))
     try:
         result = run(cell, args.seed, args.seconds, bool(args.trace),
-                     "cuda:0", tmp)
+                     "cuda:0", tmp, marks=marks)
     finally:
         import shutil
 

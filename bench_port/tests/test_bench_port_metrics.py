@@ -90,3 +90,61 @@ def test_job_rate_tail_and_phases():
     assert read("hist_launches_per_job", rec) == 2.0
     assert read("device_idle_pct", rec) is None
     assert read("job_p90_s", dict(rec, jobs=jobs([1.0]))) is None
+
+
+SETUP = ("setup_import_ms", "setup_context_ms", "setup_first_job_ms",
+         "setup_cold_ms", "setup_libs_ms", "setup_harness_ms")
+
+
+def setup_rec(first_phases, window_walls=(0.2, 0.3, 0.25, 0.9)):
+    cold = {"wall": 3.5, "phases": first_phases}
+    warm = {"wall": 0.4, "phases": {"count": 0.05}}
+    return {"jobs": jobs(list(window_walls)), "setup_s": 12.0,
+            "context_s": 0.6, "warmup": [cold, warm],
+            "setup_marks": {"context": 4.6, "card": 4.8, "corpus": 4.9,
+                            "first_warmup": 8.4}}
+
+
+def test_setup_parts_sum_to_setup_s():
+    rec = setup_rec({"setup.import": 4.0, "device": 1e-4, "count": 1.0,
+                     "count.lib.native": 0.3, "lib.histogram": 0.5,
+                     "pwm.lib.histogram.x": 9.0})
+    got = {m: read(m, rec) for m in SETUP}
+    assert got["setup_import_ms"] == pytest.approx(4000.0)
+    assert got["setup_context_ms"] == pytest.approx(600.0)
+    assert got["setup_first_job_ms"] == pytest.approx(3500.0)
+    assert got["setup_harness_ms"] == pytest.approx(3900.0)
+    assert sum(got[m] for m in ("setup_import_ms", "setup_context_ms",
+                                "setup_first_job_ms", "setup_harness_ms")) \
+        == pytest.approx(rec["setup_s"] * 1e3)
+    # only paths that end in a library's span count, at any depth
+    assert got["setup_libs_ms"] == pytest.approx(800.0)
+    assert got["setup_libs_ms"] <= got["setup_first_job_ms"]
+
+
+def test_setup_cold_is_the_first_job_less_the_window_median():
+    rec = setup_rec({"setup.import": 4.0})
+    # median of 0.2, 0.25, 0.3, 0.9 is 0.275: not the mean (0.4125)
+    assert read("setup_cold_ms", rec) == pytest.approx((3.5 - 0.275) * 1e3)
+    # read as it comes, below 0 too
+    slow = setup_rec({"setup.import": 4.0}, window_walls=(4.0, 5.0, 6.0))
+    assert read("setup_cold_ms", slow) == pytest.approx(-1500.0)
+    assert read("setup_cold_ms", dict(rec, jobs=[])) is None
+
+
+@pytest.mark.parametrize("metric", SETUP)
+def test_setup_reads_none_without_the_cold_report(metric):
+    """A first job whose report lacks setup.import (off Linux, or not the
+    process's first) reads nothing; so does a run with no warm-up."""
+    assert read(metric, setup_rec({"device": 0.5, "lib.native": 0.2})) \
+        is None
+    assert read(metric, dict(setup_rec({"setup.import": 1.0}),
+                             warmup=[])) is None
+
+
+def test_setup_libs_zero_where_no_library_loads():
+    """A first job that loads no library (one loaded before it) reads 0,
+    so the metric stays in every traced line of its cells."""
+    rec = setup_rec({"setup.import": 4.0, "count": 1.0})
+    assert read("setup_libs_ms", rec) == 0.0
+    assert read("setup_first_job_ms", rec) == pytest.approx(3500.0)

@@ -91,6 +91,53 @@ def test_a_traced_run_reads_the_layers(root, tmp_path):
     assert res["breakdown"]["idle_gaps"]
 
 
+SETUP_PARTS = ("setup_import_ms", "setup_context_ms", "setup_first_job_ms",
+               "setup_harness_ms")
+
+
+def test_a_run_keeps_its_set_up(root, tmp_path, monkeypatch):
+    """The jobs before the window are kept, the process's age rises from
+    mark to mark up to setup_s, and the set-up's parts, read from the
+    run's first job as from a fresh process's, sum to setup_s."""
+    from peng_motif_tpu_torch.utils import logging_utils
+
+    if logging_utils.process_start_ns() is None:
+        pytest.skip("no process start to read off Linux")
+    monkeypatch.setattr(logging_utils, "_COLD", True)
+    rec = {}
+    res = R.run(R.load_cell("tiny_w8", root), 2 ** 33 + 7, 1.0, True, "cpu",
+                str(tmp_path), record=rec)
+    assert res["correct"]
+    assert len(rec["warmup"]) == 2
+    assert all(j["rc"] == 0 and "count" not in j for j in rec["warmup"])
+    assert "setup.import" in rec["warmup"][0]["phases"]
+    assert "setup.import" not in rec["warmup"][1]["phases"]
+    marks = rec["setup_marks"]
+    assert list(marks) == ["imports", "context", "card", "corpus",
+                           "first_warmup"]
+    ages = list(marks.values())
+    assert ages == sorted(ages) and ages[-1] <= rec["setup_s"]
+    m = {k: v["value"] for k, v in res["metrics"].items()}
+    assert set(SETUP_PARTS) | {"setup_cold_ms"} <= set(m)
+    assert sum(m[k] for k in SETUP_PARTS) == pytest.approx(
+        rec["setup_s"] * 1e3, abs=1e-6)
+    assert m["setup_harness_ms"] >= 0
+    assert m["setup_first_job_ms"] == pytest.approx(
+        rec["warmup"][0]["wall"] * 1e3)
+
+
+def test_a_resumed_run_keeps_its_set_up_job_first(root, tmp_path):
+    rec = {}
+    run_rec = R.run(R.load_cell("tiny_w8.resume", root), 2 ** 33 + 9, 0.5,
+                    False, "cpu", str(tmp_path), record=rec)
+    assert run_rec["correct"]
+    # the checkpoint's set-up job, then the traffic's three warm-up jobs
+    assert len(rec["warmup"]) == 4
+    assert "--save-checkpoint" not in rec["warmup"][1]["argv"]
+    ages = list(rec["setup_marks"].values())
+    assert ages == sorted(ages) and ages[-1] <= rec["setup_s"]
+
+
 def test_a_resumed_run_checks_the_checkpoint(root, tmp_path):
     res = run(root, "tiny_w8.resume", tmp_path)
     assert res["correct"], res["checked"]
