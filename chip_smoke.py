@@ -54,7 +54,13 @@ caught):
                (17 motifs) and -w 12 (16): identical iterations, PWM
                cells within 5e-6, two kernel calls bit-identical, the
                kernel's device time a round (profiler) and both rounds'
-               walls a round (in turns) beside the bytes' bound;
+               walls a round (in turns) beside the bytes' bound; then
+               the climb's aggregates kernel (csrc/climb.cu) against the
+               dense torch step on the card, on the walk inputs of MafK
+               jobs at -w 10 and -w 12: the trace's integer fields
+               identical, aggregates within 1e-6 relative, two kernel
+               runs bit-identical, the kernel's device time a step
+               (profiler), the rows it read and their bytes' bound;
   7. exact   — the exact engine (--engine exact --device cuda): MafK -w 8,
                -w 10 and MafK_100seqs -w 12 with the host count (within
                tolerance of the golden files; byte-identity printed) and
@@ -196,6 +202,7 @@ GOLDEN = os.path.join(REPO, "tests", "golden")
 KERNEL_SOURCE = "peng_motif_tpu_torch/csrc/histogram.cu"
 KERNEL_REPLACES = "peng_motif_tpu/ops/pallas_hist.py:261"
 EM_SOURCE = "peng_motif_tpu_torch/csrc/em.cu"
+CLIMB_SOURCE = "peng_motif_tpu_torch/csrc/climb.cu"
 TOL_ABS, TOL_REL = 5e-6, 1e-6
 
 
@@ -641,6 +648,133 @@ def run_em_phase(tmp, dev):
                   f"{rec['plain_wall_ms']:.4f} ms wall; PWMs within "
                   f"{err:.3g}, iterations identical", flush=True)
             assert dev_ms > 0, f"w{W}: the profiler saw no EM kernel"
+            out[f"w{W}"] = rec
+    return out
+
+
+def run_climb_phase(tmp, dev):
+    """Phase 6's climb half: the aggregates kernel against the dense torch
+    step on the walk inputs of MafK jobs at the cells' widths.  Returns
+    the numbers by width for the kernels' JSON record."""
+    import numpy as np
+    import torch
+
+    from peng_motif_tpu_torch import engine
+    from peng_motif_tpu_torch.ops import climb
+    from peng_motif_tpu_torch.utils.logging_utils import PhaseTimer
+
+    out = {}
+    with phase("climb: the aggregates kernel against the dense torch step"):
+        for W in (10, 12):
+            calls = []
+            real = engine.run_walks
+
+            def record(*a, calls=calls, real=real, **k):
+                calls.append((a, k))
+                return real(*a, **k)
+
+            engine.run_walks = record
+            try:
+                run_cli([os.path.join(GOLDEN, "MafK.fasta"), "-w", str(W),
+                         "--device", "cuda", "--engine", "tpu", "-o",
+                         os.path.join(tmp, f"climb_w{W}.meme")])
+            finally:
+                engine.run_walks = real
+            ((a, kw),) = calls
+            counts, expected, bgp, seeds, length, both, st, n_seq, pseudo = a
+            assert counts.device.type == "cuda" and length == W
+            ids = torch.as_tensor(np.asarray(seeds, np.int32), device=dev)
+
+            def walks(plain):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                with PhaseTimer().activate() as rec:
+                    tr = climb.walks_program(
+                        counts, expected, bgp, ids, np.float32(n_seq),
+                        np.float32(pseudo), length, both, st, plain=plain,
+                        **kw)
+                torch.cuda.synchronize(dev)
+                return tr, rec, time.perf_counter() - t0
+
+            res, walls = {}, {"kernel": [], "plain": []}
+            # the first run of each is a warm-up; then kernel, plain,
+            # plain, kernel
+            for label in ("kernel", "plain", "kernel", "plain", "plain",
+                          "kernel"):
+                tr, rec, wall = walks(label == "plain")
+                if label in res:
+                    walls[label].append(wall)
+                    if label == "kernel":
+                        for k, x in tr.items():
+                            if torch.is_tensor(x):
+                                assert torch.equal(x, res[label][0][k]), \
+                                    f"w{W}: two kernel runs differ in {k}"
+                res.setdefault(label, (tr, rec))
+            (kt, krec), (pt, _) = res["kernel"], res["plain"]
+            h = {lab: {k: (x.cpu().numpy() if torch.is_tensor(x) else x)
+                       for k, x in t.items()}
+                 for lab, t in (("kernel", kt), ("plain", pt))}
+            steps = int(h["kernel"]["n_steps"])
+            assert steps == int(h["plain"]["n_steps"]) >= 2
+            for k in ("improved", "chosen_idx", "acc_idx", "acc_n",
+                      "chosen_counts", "acc_counts", "init_counts"):
+                assert np.array_equal(h["kernel"][k], h["plain"][k]), \
+                    f"w{W}: walk traces differ in {k}"
+            rel = 0.0
+            for k in ("chosen_expected", "chosen_bgp", "acc_expected",
+                      "init_expected", "init_bgp"):
+                x = h["kernel"][k].astype(np.float64)
+                y = h["plain"][k].astype(np.float64)
+                scale = np.where(y != 0, np.abs(y), 1.0)
+                rel = max(rel, float(np.max(np.abs(x - y) / scale)))
+            assert rel <= 1e-6, f"w{W}: aggregates {rel} apart"
+            assert krec.counters["climb.kernel_steps"] == steps
+            rows = krec.counters["climb.ids"]
+            assert rows > 0
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                walks(False)
+            device_us = sum(e.device_time_total for e in prof.key_averages()
+                            if "climb_agg_kernel" in e.key)
+            assert device_us > 0, f"w{W}: the profiler saw no climb kernel"
+            # |M|, the k-mers of a walk's pattern, at each step it was
+            # active, replayed from the trace
+            sizes = np.asarray(climb.IUPAC_MASKS).sum(1)
+            digits = [[(int(x) >> (2 * p)) & 3 for p in range(W)]
+                      for x in seeds]
+            live = [True] * len(seeds)
+            set_sizes = {}
+            for t in range(steps):
+                for s_, d in enumerate(digits):
+                    if not live[s_]:
+                        continue
+                    m = int(np.prod(sizes[d]))
+                    set_sizes[m] = set_sizes.get(m, 0) + 1
+                    live[s_] = bool(h["kernel"]["improved"][t, s_])
+                    if live[s_]:
+                        p, j = divmod(int(h["kernel"]["chosen_idx"][t, s_]),
+                                      climb.MAXSIM)
+                        d[p] = int(climb.SIM_TABLE[d[p], j])
+            row_bytes = 32 if kw["wide"] else 16
+            rec = dict(
+                set_sizes=dict(sorted(set_sizes.items())),
+                walks=len(seeds), steps=steps, ids_read=rows,
+                bytes=rows * row_bytes, max_rel_err=rel,
+                kernel_device_ms=device_us / 1e3 / steps,
+                kernel_wall_ms=median(walls["kernel"]) * 1e3 / steps,
+                plain_wall_ms=median(walls["plain"]) * 1e3 / steps,
+                bound_ms=rows * row_bytes / 3.35e12 * 1e3 / steps)
+            print(f"  w{W}: {rec['walks']} walks, {steps} steps, "
+                  f"{rows} rows read ({rec['bytes'] / 1e6:.1f} MB); a step: "
+                  f"kernel {rec['kernel_device_ms']:.4f} ms device "
+                  f"({100 * rec['bound_ms'] / rec['kernel_device_ms']:.1f}% "
+                  f"of the {rec['bound_ms']:.4f} ms bound of its rows' bytes "
+                  f"at 3.35 TB/s), walks {rec['kernel_wall_ms']:.4f} ms "
+                  f"wall against the dense step's "
+                  f"{rec['plain_wall_ms']:.4f}; trace integers identical, "
+                  f"aggregates within {rel:.3g}", flush=True)
+            print(f"  w{W}: |M| over the walks' steps: {rec['set_sizes']}",
+                  flush=True)
             out[f"w{W}"] = rec
     return out
 
@@ -2459,6 +2593,7 @@ def main() -> int:
                   "same iterations", flush=True)
 
     em_rec = run_em_phase(big.name, dev)
+    climb_rec = run_climb_phase(big.name, dev)
     exact = run_exact_phase(big.name, fasta)
     max_err = max(max_err, exact["max_abs_err"])
     mesh = run_mesh_phase(big.name, fasta, dev, n_bases)
@@ -2500,7 +2635,10 @@ def main() -> int:
     # em_round: EM's round kernel on MafK's w10 / w12 EM inputs (motifs,
     # rounds, iterations, the kernel's and the plain torch round's wall a
     # round, the kernel's device ms a round by kernel, the bound of 8 B an
-    # id at 3.35 TB/s)
+    # id at 3.35 TB/s); climb_step: the climb's aggregates kernel on MafK's
+    # w10 / w12 walk inputs (walks, steps, the rows it read and their bytes,
+    # its device ms a step, the walks' wall a step against the dense torch
+    # step's, the bound of the rows' bytes at 3.35 TB/s a step)
     print(json.dumps({"kernels": [{
         "name": "histogram", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches,
@@ -2517,7 +2655,10 @@ def main() -> int:
         "hybrid": hybrid, "cards": cards}, {
         "name": "em_round", "route": "cuda", "source": EM_SOURCE,
         "replaces": "the torch round of ops/em.py (no Pallas kernel)",
-        **em_rec}]}), flush=True)
+        **em_rec}, {
+        "name": "climb_step", "route": "cuda", "source": CLIMB_SOURCE,
+        "replaces": "the dense torch step of ops/climb.py (no Pallas "
+                    "kernel)", **climb_rec}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -14,8 +14,11 @@ endpoint is *emitted* (src/peng.cpp:511-524).  So the device runs all S
 walks in lockstep, one step per loop iteration evaluating all
 S x W x 10 single-position mutants through marginal tables, and the
 host replays the sequential seen-set bookkeeping over the returned
-trajectories in seed order.  On a CUDA device the step is captured once
-into a CUDA graph and replayed, one launch instead of ~350.
+trajectories in seed order.  On a CUDA device the mutants' aggregates
+come from one hand-written kernel that gathers the table rows each mask
+set matches (``csrc/climb.cu``: :func:`climb_aggregates`), and the step
+is captured once into a CUDA graph and replayed; elsewhere a dense
+contraction over the whole table computes them (the kernel's yardstick).
 
 Scores are computed with the reference's float32-storage /
 float64-transcendental promotion points (ops/flat_tables) and compared
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 
 from . import flat_tables as ft
+from .histogram import build_kernels, on_device
 from ..alphabets import IUPAC_MASKS, IUPAC_SIMILAR, LOG_BONFERRONI
 from ..utils.logging_utils import count, span, sync_read, upload
 
@@ -42,6 +46,13 @@ MAXSIM = max(len(s) for s in IUPAC_SIMILAR)  # 10 (letter N)
 SIM_TABLE = np.full((len(IUPAC_SIMILAR), MAXSIM), -1, dtype=np.int32)
 for _c, _sims in enumerate(IUPAC_SIMILAR):
     SIM_TABLE[_c, : len(_sims)] = _sims
+
+# [11, 1 + MAXSIM] the kernel's letter table: each letter's 4-bit base mask
+# (bit d: base d), then its similar letters
+LETTER_TABLE = np.concatenate(
+    [(np.asarray(IUPAC_MASKS, dtype=np.int32)
+      << np.arange(4, dtype=np.int32)).sum(1, dtype=np.int32)[:, None],
+     SIM_TABLE], axis=1)
 
 MAX_STEPS = 48     # longest supported walk (score strictly decreases
                    # each step; real walks take ~15 steps at W=10)
@@ -106,6 +117,217 @@ def _aggregate_full(stack: torch.Tensor, masks: torch.Tensor, length: int,
     s2 = ft.sep_sum_flat(stack, mrc, length)
     s3 = ft.sep_sum_flat(stack, masks * mrc, length)
     return s1 + s2 - s3
+
+
+def _dense_aggregates(counts_flat, expected_flat, bgp_flat, length: int,
+                      both: bool, dtype):
+    """The step's aggregates as torch code over the whole table, on any
+    device (the CPU path, and the kernel's yardstick on the card): a
+    function ``aggregates(digits, letters)`` that gives every walk's C
+    mutants' [S, 3, C] (count, expected, bg) sums.
+
+    A mutant differs from its mother at one position p, so the
+    double-strand dedup aggregate S(M) + S(M_rc) - S(M & M_rc)
+    (reference: src/iupac_pattern.cpp:410-441) needs the mother's
+    single-position marginals of mask sets A = M, B = M_rc (terms 1, 2)
+    and the (p, W-1-p) pair marginals of C = M & M_rc (term 3: p and its
+    mirror always straddle the hi/lo split)."""
+    dev = counts_flat.device
+    W = length
+    AGG = dtype
+    stack = torch.stack([counts_flat.to(AGG), expected_flat.to(AGG),
+                         bgp_flat.to(AGG)])
+    if both:
+        stack = torch.where(ft.canonical_mask(W, dev), stack,
+                            torch.zeros((), dtype=AGG, device=dev))
+
+    # hi/lo bilinear layout: flat id = hi * 4**half + lo, so the table
+    # is a [G, H, L] tensor and a separable-mask aggregate is the
+    # bilinear form  kron_hi^T X kron_lo — per step, all mask sets'
+    # X-contractions batch into two matmuls (see aggregates below)
+    half = W // 2
+    Lb = 4 ** half
+    X = stack.reshape(3, Lb, Lb)
+    dig = np.stack([(np.arange(Lb) >> (2 * p)) & 3
+                    for p in range(half)])               # [half, L]
+    oh_np = np.zeros((half, 4, Lb))
+    for _p in range(half):
+        oh_np[_p, dig[_p], np.arange(Lb)] = 1.0
+    DIG = upload(dig, dev)
+    OH = upload(oh_np, dev, AGG)
+    POS_H = torch.arange(half, device=dev)[:, None]      # [half, 1]
+
+    masks_tbl = upload(IUPAC_MASKS, dev, AGG)
+    pos_idx = torch.arange(W, device=dev).repeat_interleave(MAXSIM)  # [C]
+    mirror = W - 1 - pos_idx                                         # [C]
+    pair_lo = torch.minimum(pos_idx, mirror)                         # [C]
+    is_low = (pos_idx < half)[None, :, None]                         # [1,C,1]
+
+    def _factors(rows_half):
+        """[S, half, 4] per-position rows -> [S, half, L] per-index
+        factors.  Mask entries are exactly 0/1, so every kron / cumprod
+        below is exact regardless of multiply order."""
+        return rows_half[:, POS_H, DIG]
+
+    def _loo(f):
+        """Exclusive prefix x suffix products along the position axis:
+        leave-one-out kron factors, [S, half, L]."""
+        pre = torch.cumprod(f, dim=1)
+        suf = torch.cumprod(f.flip(1), dim=1).flip(1)
+        one = torch.ones_like(f[:, :1])
+        pre_ex = torch.cat([one, pre[:, :-1]], dim=1)
+        suf_ex = torch.cat([suf[:, 1:], one], dim=1)
+        return pre_ex * suf_ex
+
+    def _marg(Zs, loo_lo, Ys, loo_hi):
+        """[S, 3, W, 4] single-position marginals: lo positions from
+        the hi-contracted Zs, hi positions from the lo-contracted Ys."""
+        return torch.cat([
+            torch.einsum("sgl,spl,pal->sgpa", Zs, loo_lo, OH),
+            torch.einsum("sgh,sph,pah->sgpa", Ys, loo_hi, OH),
+        ], dim=2)
+
+    def aggregates(digits, letters):
+        S_ = digits.shape[0]
+        m = masks_tbl[digits]                            # [S, W, 4]
+        u = masks_tbl[letters]                           # [S, C, 4]
+
+        fA_lo, fA_hi = _factors(m[:, :half]), _factors(m[:, half:])
+        if both:
+            mf = m.flip(1, 2)                            # B rows (rc set)
+            mc = m * mf                                  # C rows (dedup set)
+            fB_lo, fB_hi = _factors(mf[:, :half]), _factors(mf[:, half:])
+            fC_lo, fC_hi = _factors(mc[:, :half]), _factors(mc[:, half:])
+
+            # hi-side contraction: A/B full krons + C leave-one-out
+            # (reversed so slot p pairs global hi position W-1-p with
+            # lo position p)
+            looC_hi4 = (_loo(fC_hi).flip(1)[:, :, None, :]
+                        * OH.flip(0)[None])              # [S, half, 4, H]
+            hi_cat = torch.cat([
+                torch.prod(fA_hi, dim=1)[:, None],
+                torch.prod(fB_hi, dim=1)[:, None],
+                looC_hi4.reshape(S_, 4 * half, Lb),
+            ], dim=1)                                    # [S, 2+4*half, H]
+            Zt = torch.einsum("ghl,skh->sgkl", X, hi_cat)
+
+            lo_cat = torch.stack(
+                [torch.prod(fA_lo, dim=1), torch.prod(fB_lo, dim=1)], dim=1)
+            Yt = torch.einsum("ghl,skl->sgkh", X, lo_cat)  # [S, 3, 2, H]
+
+            MA = _marg(Zt[:, :, 0], _loo(fA_lo), Yt[:, :, 0], _loo(fA_hi))
+            MB = _marg(Zt[:, :, 1], _loo(fB_lo), Yt[:, :, 1], _loo(fB_hi))
+            ZC = Zt[:, :, 2:].reshape(S_, 3, half, 4, Lb)
+            looC_lo4 = _loo(fC_lo)[:, :, None, :] * OH[None]
+            G = torch.einsum("sgpbl,spal->sgpab", ZC, looC_lo4)
+
+            uf = u.flip(-1)
+            sidx = torch.arange(S_, device=dev)[:, None]
+            s1 = torch.einsum("sgca,sca->sgc", MA[:, :, pos_idx], u)
+            s2 = torch.einsum("sgca,sca->sgc", MB[:, :, mirror], uf)
+            m_mir = m[sidx, mirror[None, :]]             # [S, C, 4]
+            mlo_low, mhi_low = u * m_mir.flip(-1), m_mir * uf
+            mask_lo = torch.where(is_low, mlo_low, mhi_low)
+            mask_hi = torch.where(is_low, mhi_low, mlo_low)
+            s3 = torch.einsum("sgcab,sca,scb->sgc",
+                              G[:, :, pair_lo], mask_lo, mask_hi)
+            agg = s1 + s2 - s3                           # [S, 3, C]
+        else:
+            Zt = torch.einsum("ghl,skh->sgkl", X,
+                              torch.prod(fA_hi, dim=1)[:, None])
+            Yt = torch.einsum("ghl,skl->sgkh", X,
+                              torch.prod(fA_lo, dim=1)[:, None])
+            MA = _marg(Zt[:, :, 0], _loo(fA_lo), Yt[:, :, 0], _loo(fA_hi))
+            agg = torch.einsum("sgca,sca->sgc", MA[:, :, pos_idx], u)
+
+        return agg
+
+    return aggregates
+
+
+def _seed_aggregates(tables, seed_ids: torch.Tensor, length: int,
+                     both: bool, dtype) -> torch.Tensor:
+    """The seeds' [S, 3] aggregates of the (count, expected, bg) tables:
+    a seed is one k-mer, so under both strands its aggregate is the entry
+    of its canonical id (min(id, revcomp(id)); a palindrome's once), on
+    the plus strand its own.  Equal to :func:`_aggregate_full` on the
+    masked tables bit for bit, with no contraction."""
+    ids = seed_ids.to(torch.int64)
+    if both:
+        rc = torch.zeros_like(ids)
+        for p in range(length):
+            rc += (3 - ((ids >> (2 * p)) & 3)) << (2 * (length - 1 - p))
+        ids = torch.minimum(ids, rc)
+    return torch.stack([t[ids].to(dtype) for t in tables], dim=-1)
+
+
+def climb_aggregates(rows, digits, active, letters, out, ids_read,
+                     length: int, both: bool):
+    """The mutant aggregates of every active walk into ``out`` [S, 3,
+    MAXSIM * W], by one launch of the climb kernel (``csrc/climb.cu``) on
+    the current stream: rows [4**W, 4] (count, expected, bg, 0), f32 or
+    f64, the plus strand's tables (the kernel keeps canonical ids under
+    both strands); digits int64 [S, W]; active bool [S] (an inactive
+    walk's rows of ``out`` are left as they are); letters int32
+    ``LETTER_TABLE``; out in the rows' dtype; ids_read int64 [1] (adds the
+    rows the launch read).  Allocates nothing and waits for
+    nothing, so a CUDA graph can hold it.  Raises on a tensor it does not
+    take and on a refused launch."""
+    dev = rows.device
+    if dev.type != "cuda":
+        raise ValueError(f"climb kernel: needs a CUDA device, got {dev}")
+    S = digits.shape[0]
+    want = {
+        "rows": (rows, (4 ** length, 4), (F32, torch.float64)),
+        "digits": (digits, (S, length), (torch.int64,)),
+        "active": (active, (S,), (torch.bool,)),
+        "letters": (letters, LETTER_TABLE.shape, (torch.int32,)),
+        "out": (out, (S, 3, MAXSIM * length), (rows.dtype,)),
+        "ids_read": (ids_read, (1,), (torch.int64,)),
+    }
+    for name, (t, shape, dtypes) in want.items():
+        if (t.device != dev or tuple(t.shape) != tuple(shape)
+                or t.dtype not in dtypes or not t.is_contiguous()):
+            raise ValueError(
+                f"climb kernel: {name} must be contiguous {tuple(shape)} of "
+                f"{[str(d) for d in dtypes]} on {dev}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+    if rows.data_ptr() % 16:
+        raise ValueError("climb kernel: rows must be 16-byte aligned")
+    lib = build_kernels()
+    with on_device(dev):
+        err = lib.peng_climb_aggregates(
+            rows.data_ptr(), digits.data_ptr(), active.data_ptr(),
+            letters.data_ptr(), out.data_ptr(), ids_read.data_ptr(), S,
+            length, int(both), int(rows.dtype == torch.float64),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"climb kernel launch failed: CUDA error {err} (W {length}, "
+            f"{S} walks)")
+    return out
+
+
+def _kernel_aggregates(counts_flat, expected_flat, bgp_flat, letters,
+                       active, length: int, both: bool, dtype):
+    """The step's aggregates on a CUDA device, by :func:`climb_aggregates`
+    over one [4**W, 4] row table: ``(aggregates, ids_read)``, the function
+    :func:`_dense_aggregates` gives and the device count of the table rows
+    the kernel read."""
+    dev = counts_flat.device
+    S = active.shape[0]
+    rows = torch.zeros((4 ** length, 4), dtype=dtype, device=dev)
+    for g, t in enumerate((counts_flat, expected_flat, bgp_flat)):
+        rows[:, g] = t
+    out = torch.zeros((S, 3, MAXSIM * length), dtype=dtype, device=dev)
+    ids_read = torch.zeros(1, dtype=torch.int64, device=dev)
+    build_kernels()  # never inside a graph's capture
+
+    def aggregates(digits, letters_):
+        return climb_aggregates(rows, digits, active, letters, out,
+                                ids_read, length, both)
+
+    return aggregates, ids_read
 
 
 _SIDE_STREAMS: dict = {}
@@ -180,16 +402,24 @@ def walks_program(
     max_steps: int = MAX_STEPS,
     acc_cap: int = ACC_CAP,
     wide: bool = False,
+    plain: bool = False,
 ):
     """All S walks in lockstep on the tables' device; returns the trace
     as a dict of device tensors (keys of :class:`WalkTrace`).  One host
     sync per step (the loop stops once no walk is active); on a CUDA
-    device every step after the first replays one CUDA graph
-    (:func:`_lockstep`).  Every seed
-    slot is a live walk: seeds are sized exactly, so the reference's
-    padding mask (``seed_valid``) has no counterpart."""
+    device the mutants' aggregates come from the climb kernel
+    (:func:`climb_aggregates`; counters ``climb.kernel_steps``, the steps
+    it served, and ``climb.ids``, the table ids it read, both 0 off
+    CUDA) and every step after the first replays one CUDA graph
+    (:func:`_lockstep`).  Every seed slot is a live walk: seeds are sized
+    exactly, so the reference's padding mask (``seed_valid``) has no
+    counterpart.  ``plain`` takes the dense torch step on any device (the
+    kernel's yardstick on the card)."""
     dev = counts_flat.device
+    kernel = dev.type == "cuda" and not plain
     count("climb.graph_steps", 0)
+    count("climb.kernel_steps", 0)
+    count("climb.ids", 0)
     W = length
     C = W * MAXSIM
     S = seed_ids.shape[0]
@@ -198,37 +428,20 @@ def walks_program(
     n_sequences = ft._scalar_f32(n_sequences, counts_flat)
     pseudo_expected = ft._scalar_f32(pseudo_expected, counts_flat)
 
-    counts_f = counts_flat.to(AGG)
-    stack = torch.stack([counts_f, expected_flat.to(AGG),
-                         bgp_flat.to(AGG)])
-    if both:
-        stack = torch.where(ft.canonical_mask(W, dev), stack,
-                            torch.zeros((), dtype=AGG, device=dev))
-
-    # hi/lo bilinear layout: flat id = hi * 4**half + lo, so the table
-    # is a [G, H, L] tensor and a separable-mask aggregate is the
-    # bilinear form  kron_hi^T X kron_lo — per step, all mask sets'
-    # X-contractions batch into two matmuls (see _batched_eval)
-    half = W // 2
-    Lb = 4 ** half
-    X = stack.reshape(3, Lb, Lb)
-    dig = np.stack([(np.arange(Lb) >> (2 * p)) & 3
-                    for p in range(half)])               # [half, L]
-    oh_np = np.zeros((half, 4, Lb))
-    for _p in range(half):
-        oh_np[_p, dig[_p], np.arange(Lb)] = 1.0
-    DIG = upload(dig, dev)
-    OH = upload(oh_np, dev, AGG)
-    POS_H = torch.arange(half, device=dev)[:, None]      # [half, 1]
-
-    sim_tbl = upload(SIM_TABLE.astype(np.int64), dev)
-    masks_tbl = upload(IUPAC_MASKS, dev, AGG)
+    letter_tbl = upload(LETTER_TABLE, dev)
+    sim_tbl = letter_tbl[:, 1:].to(torch.int64)
     lb = upload(np.asarray(LOG_BONFERRONI, dtype=np.float32), dev)
     pos_idx = torch.arange(W, device=dev).repeat_interleave(MAXSIM)  # [C]
-    mirror = W - 1 - pos_idx                                         # [C]
-    pair_lo = torch.minimum(pos_idx, mirror)                         # [C]
-    is_low = (pos_idx < half)[None, :, None]                         # [1,C,1]
     inf = torch.full((), float("inf"), dtype=F32, device=dev)
+    # the walks' live flags, which each step updates in place
+    active = torch.ones(S, dtype=torch.bool, device=dev)
+    if kernel:
+        aggregates, ids_read = _kernel_aggregates(
+            counts_flat, expected_flat, bgp_flat, letter_tbl, active, W,
+            both, AGG)
+    else:
+        aggregates = _dense_aggregates(
+            counts_flat, expected_flat, bgp_flat, W, both, AGG)
 
     def bonferroni_fold(digit_mat):
         """Sequential f32 fold over positions (the reference adds the
@@ -238,95 +451,14 @@ def walks_program(
             b = b + lb[digit_mat[..., p]]
         return b
 
-    def _factors(rows_half):
-        """[S, half, 4] per-position rows -> [S, half, L] per-index
-        factors.  Mask entries are exactly 0/1, so every kron / cumprod
-        below is exact regardless of multiply order."""
-        return rows_half[:, POS_H, DIG]
-
-    def _loo(f):
-        """Exclusive prefix x suffix products along the position axis:
-        leave-one-out kron factors, [S, half, L]."""
-        pre = torch.cumprod(f, dim=1)
-        suf = torch.cumprod(f.flip(1), dim=1).flip(1)
-        one = torch.ones_like(f[:, :1])
-        pre_ex = torch.cat([one, pre[:, :-1]], dim=1)
-        suf_ex = torch.cat([suf[:, 1:], one], dim=1)
-        return pre_ex * suf_ex
-
-    def _marg(Zs, loo_lo, Ys, loo_hi):
-        """[S, 3, W, 4] single-position marginals: lo positions from
-        the hi-contracted Zs, hi positions from the lo-contracted Ys."""
-        return torch.cat([
-            torch.einsum("sgl,spl,pal->sgpa", Zs, loo_lo, OH),
-            torch.einsum("sgh,sph,pah->sgpa", Ys, loo_hi, OH),
-        ], dim=2)
-
     def _batched_eval(digits):
         """All C mutants of all S walks: (scores_f32, cnt, exp, bgp,
-        letters), each [S, C].
-
-        A mutant differs from its mother at one position p, so the
-        double-strand dedup aggregate S(M) + S(M_rc) - S(M & M_rc)
-        (reference: src/iupac_pattern.cpp:410-441) needs the mother's
-        single-position marginals of mask sets A = M, B = M_rc (terms
-        1, 2) and the (p, W-1-p) pair marginals of C = M & M_rc (term
-        3: p and its mirror always straddle the hi/lo split).
-        """
+        letters), each [S, C]."""
         S_ = digits.shape[0]
-        m = masks_tbl[digits]                            # [S, W, 4]
         cand_letters = sim_tbl[digits].reshape(S_, -1)   # [S, C]
         valid = cand_letters >= 0
         letters = torch.where(valid, cand_letters, 0)
-        u = masks_tbl[letters]                           # [S, C, 4]
-
-        fA_lo, fA_hi = _factors(m[:, :half]), _factors(m[:, half:])
-        if both:
-            mf = m.flip(1, 2)                            # B rows (rc set)
-            mc = m * mf                                  # C rows (dedup set)
-            fB_lo, fB_hi = _factors(mf[:, :half]), _factors(mf[:, half:])
-            fC_lo, fC_hi = _factors(mc[:, :half]), _factors(mc[:, half:])
-
-            # hi-side contraction: A/B full krons + C leave-one-out
-            # (reversed so slot p pairs global hi position W-1-p with
-            # lo position p)
-            looC_hi4 = (_loo(fC_hi).flip(1)[:, :, None, :]
-                        * OH.flip(0)[None])              # [S, half, 4, H]
-            hi_cat = torch.cat([
-                torch.prod(fA_hi, dim=1)[:, None],
-                torch.prod(fB_hi, dim=1)[:, None],
-                looC_hi4.reshape(S_, 4 * half, Lb),
-            ], dim=1)                                    # [S, 2+4*half, H]
-            Zt = torch.einsum("ghl,skh->sgkl", X, hi_cat)
-
-            lo_cat = torch.stack(
-                [torch.prod(fA_lo, dim=1), torch.prod(fB_lo, dim=1)], dim=1)
-            Yt = torch.einsum("ghl,skl->sgkh", X, lo_cat)  # [S, 3, 2, H]
-
-            MA = _marg(Zt[:, :, 0], _loo(fA_lo), Yt[:, :, 0], _loo(fA_hi))
-            MB = _marg(Zt[:, :, 1], _loo(fB_lo), Yt[:, :, 1], _loo(fB_hi))
-            ZC = Zt[:, :, 2:].reshape(S_, 3, half, 4, Lb)
-            looC_lo4 = _loo(fC_lo)[:, :, None, :] * OH[None]
-            G = torch.einsum("sgpbl,spal->sgpab", ZC, looC_lo4)
-
-            uf = u.flip(-1)
-            sidx = torch.arange(S_, device=dev)[:, None]
-            s1 = torch.einsum("sgca,sca->sgc", MA[:, :, pos_idx], u)
-            s2 = torch.einsum("sgca,sca->sgc", MB[:, :, mirror], uf)
-            m_mir = m[sidx, mirror[None, :]]             # [S, C, 4]
-            mlo_low, mhi_low = u * m_mir.flip(-1), m_mir * uf
-            mask_lo = torch.where(is_low, mlo_low, mhi_low)
-            mask_hi = torch.where(is_low, mhi_low, mlo_low)
-            s3 = torch.einsum("sgcab,sca,scb->sgc",
-                              G[:, :, pair_lo], mask_lo, mask_hi)
-            agg = s1 + s2 - s3                           # [S, 3, C]
-        else:
-            Zt = torch.einsum("ghl,skh->sgkl", X,
-                              torch.prod(fA_hi, dim=1)[:, None])
-            Yt = torch.einsum("ghl,skl->sgkh", X,
-                              torch.prod(fA_lo, dim=1)[:, None])
-            MA = _marg(Zt[:, :, 0], _loo(fA_lo), Yt[:, :, 0], _loo(fA_hi))
-            agg = torch.einsum("sgca,sca->sgc", MA[:, :, pos_idx], u)
+        agg = aggregates(digits, letters)                # [S, 3, C]
 
         c_c, e_c, b_c = agg[:, 0], agg[:, 1], agg[:, 2]  # [S, C]
 
@@ -357,8 +489,8 @@ def walks_program(
             score_type, base_c.to(F32), base_e, None,
             n_sequences, pseudo_expected)
     init_score = init_score.to(F32)
-    init_agg = _aggregate_full(stack, masks_tbl[digits0][:, None], W,
-                               both)                     # [S, 3]
+    init_agg = _seed_aggregates((counts_flat, expected_flat, bgp_flat),
+                                seed_ids, W, both, AGG)  # [S, 3]
 
     def zeros(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=dev)
@@ -380,7 +512,6 @@ def walks_program(
     # it writes is t_dev's), so that one CUDA graph serves every step
     digits = digits0
     best_score = init_score.clone()
-    active = torch.ones(S, dtype=torch.bool, device=dev)
     overflow = zeros((), torch.bool)
     t_dev = zeros((1,), torch.int64)
     cand_i = torch.arange(C, dtype=torch.int32, device=dev).expand(S, C)
@@ -447,9 +578,13 @@ def walks_program(
     while go:
         with span("step"):
             run_step()
+            if kernel:
+                count("climb.kernel_steps")
             t += 1
             go = t < max_steps and sync_read(active.any(), bool)
     overflow = overflow | active.any()  # ran out of steps mid-walk
+    if kernel:
+        count("climb.ids", sync_read(ids_read, int))
 
     # in wide mode every count sum is an exact integer in f64 and every
     # decision is already made; the host reads counts as integers and

@@ -17,10 +17,11 @@ inputs' device) the counts are added into it and nothing is allocated.
 plain PyTorch version, :func:`histogram_plain`, only for tensors on the
 CPU.  :func:`plan` is the dispatcher: from ``n_bins`` and ``N`` alone it
 chooses the tier (sub-histograms in shared memory, or reductions in L2)
-and the bin ranges, one launch each.  The kernel library (this kernel and
-EM's round, ``csrc/em.cu``, in one nvcc call) is built at the first CUDA
-call (and again when a source is newer); a missing nvcc, a failed build
-or a refused launch raises.
+and the bin ranges, one launch each.  The kernel library (this kernel,
+EM's round, ``csrc/em.cu``, and the climb's aggregates, ``csrc/climb.cu``,
+in one nvcc call) is built at the first CUDA call (and again when a
+source is newer); a missing nvcc, a failed build or a refused launch
+raises.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ from ..utils.logging_utils import span
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 _SRCS = tuple(os.path.join(_CSRC, name)
-              for name in ("histogram.cu", "em.cu"))
+              for name in ("histogram.cu", "em.cu", "climb.cu"))
 _SO = os.path.join(BUILD_DIR, "libpeng_kernels.so")
 
 # kernel launches made by :func:`histogram` (one per launch, nowhere
@@ -119,8 +120,8 @@ def _nvcc() -> str:
 
 
 def build_kernels() -> ctypes.CDLL:
-    """Build (if stale) and load the kernel library (``peng_histogram``
-    and ``peng_em_round``); raises on failure.
+    """Build (if stale) and load the kernel library (``peng_histogram``,
+    ``peng_em_round`` and ``peng_climb_aggregates``); raises on failure.
     ``BUILD_LOG`` keeps the compiler's report (registers, shared memory,
     spills from ``-Xptxas -v``) of the build this process ran."""
     global _lib, BUILD_LOG
@@ -144,6 +145,9 @@ def build_kernels() -> ctypes.CDLL:
                 ctypes.c_int32, ctypes.c_int32, ctypes.c_float,
                 ctypes.c_float, ctypes.c_int32, ctypes.c_void_p]
             lib.peng_em_round.restype = ctypes.c_int
+            lib.peng_climb_aggregates.argtypes = [ctypes.c_void_p] * 6 + [
+                ctypes.c_int32] * 4 + [ctypes.c_void_p]
+            lib.peng_climb_aggregates.restype = ctypes.c_int
             _lib = lib
         return _lib
 

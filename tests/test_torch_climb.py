@@ -18,6 +18,7 @@ import torch
 
 from peng_motif_tpu.ops import climb as jcl
 from peng_motif_tpu_torch.ops import climb as tcl
+from peng_motif_tpu_torch.ops import flat_tables as tft
 from peng_motif_tpu_torch.utils.logging_utils import PhaseTimer
 
 INT_KEYS = ("improved", "chosen_idx", "acc_idx", "acc_n", "chosen_counts",
@@ -128,6 +129,78 @@ def test_walks_on_cpu_take_no_graph(W, both, score_type):
     assert recorder.counters["climb.graph_steps"] == 0
     assert recorder.calls("step") == int(got["n_steps"]) >= 2
     assert_traces_match(got, want)
+
+
+@pytest.mark.parametrize("score_type", [0, 2])
+@pytest.mark.parametrize("both", [True, False], ids=["both", "plus"])
+def test_walks_off_cuda_take_the_dense_step(both, score_type, monkeypatch):
+    """Off CUDA the climb's aggregates are the dense torch step's: no
+    kernel library asked for, the counters climb.kernel_steps and
+    climb.ids registered as 0, and the trace that of the dense step
+    asked for by name."""
+    def no_library():
+        raise AssertionError("the kernel library was asked for")
+
+    monkeypatch.setattr(tcl, "build_kernels", no_library)
+    W = 6
+    inp = walk_inputs(W, seed=W * 10 + score_type)
+    with PhaseTimer().activate() as recorder:
+        got = _torch_walks(inp, W, both, score_type, False)
+    want = _torch_walks(inp, W, both, score_type, False, plain=True)
+    assert recorder.counters["climb.kernel_steps"] == 0
+    assert recorder.counters["climb.ids"] == 0
+    assert recorder.calls("step") == int(got["n_steps"]) >= 2
+    assert got.keys() == want.keys()
+    for k, v in got.items():
+        np.testing.assert_array_equal(v, want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_climb_kernel_takes_only_cuda_tensors(device, monkeypatch):
+    """The kernel's wrapper refuses tensors off CUDA before it asks for
+    the library; walks_program never hands it one."""
+    def no_library():
+        raise AssertionError("the kernel library was asked for")
+
+    monkeypatch.setattr(tcl, "build_kernels", no_library)
+    W, S = 4, 3
+    t = dict(device=device)
+    args = (torch.zeros((4 ** W, 4), **t),
+            torch.zeros((S, W), dtype=torch.int64, **t),
+            torch.ones(S, dtype=torch.bool, **t),
+            torch.zeros(tcl.LETTER_TABLE.shape, dtype=torch.int32, **t),
+            torch.zeros((S, 3, tcl.MAXSIM * W), **t),
+            torch.zeros(1, dtype=torch.int64, **t))
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        tcl.climb_aggregates(*args, W, True)
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+@pytest.mark.parametrize("both", [True, False], ids=["both", "plus"])
+@pytest.mark.parametrize("W", [6, 8])
+def test_seed_aggregates_are_the_full_aggregate(W, both, wide):
+    """The seeds' aggregates as the climb takes them, one entry of each
+    table a seed (its canonical id's under both strands), are the dense
+    contraction's over the masked tables bit for bit; the seeds include
+    palindromes."""
+    counts, expected, bgp, seeds, _ = walk_inputs(W, seed=W + 3,
+                                                  n_seeds=32)
+    ids = np.arange(4 ** W)
+    pal = ids[ids == _rc(ids, W)][:4]
+    seeds = torch.from_numpy(np.concatenate([seeds, pal]).astype(np.int32))
+    agg = torch.float64 if wide else torch.float32
+    tabs = [torch.from_numpy(a) for a in (counts, expected, bgp)]
+    stack = torch.stack([t.to(agg) for t in tabs])
+    if both:
+        stack = torch.where(tft.canonical_mask(W, "cpu"), stack,
+                            torch.zeros((), dtype=agg))
+    digits0 = torch.stack([(seeds.to(torch.int64) >> (2 * p)) & 3
+                           for p in range(W)], dim=-1)
+    masks = torch.from_numpy(np.asarray(tcl.IUPAC_MASKS)).to(agg)
+    want = tcl._aggregate_full(stack, masks[digits0][:, None], W, both)
+    got = tcl._seed_aggregates(tabs, seeds, W, both, agg)
+    assert got.dtype == want.dtype == agg
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("score_type", [0, 2])

@@ -616,22 +616,14 @@ def test_flat_tables_on_card_match_cpu(W, cuda):
         assert torch.equal(*got), order
 
 
-@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
-@pytest.mark.parametrize("score_type", [0, 1, 2])
-@pytest.mark.parametrize("both", [True, False], ids=["both", "plus"])
-def test_walks_on_card_match_cpu(both, score_type, wide, cuda):
-    W = 8
-    counts, expected, bgp, seeds = _walk_inputs(W, seed=score_type)
-    outs = {}
-    for d in (cuda, "cpu"):
-        t = [torch.from_numpy(a).to(d) for a in (counts, expected, bgp,
-                                                 seeds)]
-        out = tcl.walks_program(
-            *t, np.float32(1000), np.float32(5), W, both, score_type,
-            wide=wide)
-        outs[str(d)] = {k: (x.cpu().numpy() if torch.is_tensor(x) else x)
-                        for k, x in out.items()}
-    got, want = outs[str(cuda)], outs["cpu"]
+def _walk_trace(out):
+    return {k: (x.cpu().numpy() if torch.is_tensor(x) else x)
+            for k, x in out.items()}
+
+
+def _same_walks(got, want):
+    """Two walk traces agree: integer fields identical, aggregates within
+    1e-6 relative, scores within 2e-6 relative + 2e-5 absolute."""
     assert got["n_steps"] == want["n_steps"] >= 2
     assert bool(got["overflow"]) == bool(want["overflow"])
     for k in ("improved", "chosen_idx", "acc_idx", "acc_n", "chosen_counts",
@@ -643,6 +635,144 @@ def test_walks_on_card_match_cpu(both, score_type, wide, cuda):
     for k in ("chosen_score", "acc_score", "init_score"):
         np.testing.assert_allclose(got[k], want[k], rtol=2e-6, atol=2e-5,
                                    err_msg=k)
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+@pytest.mark.parametrize("score_type", [0, 1, 2])
+@pytest.mark.parametrize("both", [True, False], ids=["both", "plus"])
+@pytest.mark.parametrize("W", [8, 10, 12])
+def test_walks_on_card_match_cpu(W, both, score_type, wide, cuda):
+    """The climb kernel's walks on the card against the dense torch step
+    on the CPU."""
+    counts, expected, bgp, seeds = _walk_inputs(W, seed=score_type)
+    outs = {}
+    for d in (cuda, "cpu"):
+        t = [torch.from_numpy(a).to(d) for a in (counts, expected, bgp,
+                                                 seeds)]
+        with PhaseTimer().activate() as rec:
+            out = tcl.walks_program(
+                *t, np.float32(1000), np.float32(5), W, both, score_type,
+                wide=wide)
+        outs[str(d)] = _walk_trace(out)
+        steps = rec.counters["climb.kernel_steps"]
+        assert steps == (out["n_steps"] if d == cuda else 0)
+    _same_walks(outs[str(cuda)], outs["cpu"])
+
+
+def _degenerate_inputs(W, seed, n_seeds=6, ltot=300_000):
+    """Counts over a random background with a low-complexity motif
+    planted: every k-mer with G, A at the two middle positions; under
+    LOGPVAL the walks widen every other position to N (NNNGANNN, 4**6
+    k-mers, at W = 8).  The core is not its own reverse complement: the
+    mutants of a palindromic mother pair up by reverse complement with
+    equal sums on the mirrored tables, ties that rounding decides in any
+    order of summation."""
+    rng = np.random.default_rng(seed)
+    n = 4 ** W
+    ids = np.arange(n)
+    bgp = rng.uniform(0.5, 1.5, size=n)
+    bgp = (bgp / bgp.sum()).astype(np.float32)
+    counts = rng.poisson(bgp * np.float32(ltot)).astype(np.int64)
+    mid = W // 2 - 1
+    hit = ((((ids >> (2 * mid)) & 3) == 2)
+           & (((ids >> (2 * (mid + 1))) & 3) == 0))
+    counts = np.where(hit, 3 * counts + 20, counts)
+    counts = counts + counts[_rc(ids, W)]
+    bgp = (bgp + bgp[_rc(ids, W)]).astype(np.float32)
+    expected = (bgp * np.float32(ltot)).astype(np.float32)
+    z = (counts - expected) / np.sqrt(expected)
+    seeds = np.argsort(-z, kind="stable")[:n_seeds].astype(np.int32)
+    return counts.astype(np.int32), expected, bgp, seeds
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+@pytest.mark.parametrize("both", [True, False], ids=["both", "plus"])
+@pytest.mark.parametrize("W", [8, 10])
+def test_walks_to_n_heavy_sets_on_card_match_cpu(W, both, wide, cuda):
+    """Walks that widen to N-heavy mask sets (at least 4**6 k-mers) loop
+    over every id of them: the kernel's walks against the CPU's."""
+    counts, expected, bgp, seeds = _degenerate_inputs(W, seed=W)
+    outs = {}
+    for d in (cuda, "cpu"):
+        t = [torch.from_numpy(a).to(d) for a in (counts, expected, bgp)]
+        out = tcl.walks_program(
+            *t, torch.from_numpy(seeds).to(d), np.float32(1000),
+            np.float32(5), W, both, 0, wide=wide)
+        outs[str(d)] = _walk_trace(out)
+    _same_walks(outs[str(cuda)], outs["cpu"])
+    h = dict(outs[str(cuda)])
+    h["n_steps"], h["overflow"] = int(h["n_steps"]), False
+    final = [o.final_digits
+             for o in tcl.replay_walks(tcl.WalkTrace(**h), seeds, W)]
+    sizes = np.asarray(tcl.IUPAC_MASKS).sum(1)
+    assert max(int(np.prod(sizes[d])) for d in final) >= 4 ** 6
+
+
+def _ids_of(masks):
+    """The ids of a product set of 4-bit letter masks, [n] int64."""
+    ids = np.zeros(1, dtype=np.int64)
+    for p, m in enumerate(masks):
+        bases = np.array([d for d in range(4) if m >> d & 1], np.int64)
+        ids = (ids[:, None] + (bases[None, :] << (2 * p))).reshape(-1)
+    return ids
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+@pytest.mark.parametrize("both", [True, False], ids=["both", "plus"])
+def test_climb_kernel_leaves_stopped_walks_alone(both, wide, cuda):
+    """One launch on walks of which some have stopped: their rows keep
+    what was there, every other walk's valid candidates are the dense
+    step's aggregates, padding slots read 0, and the id count is the
+    rows the candidates' mask sets read."""
+    W = 8
+    counts, expected, bgp, _ = _walk_inputs(W, seed=3)
+    agg_t = torch.float64 if wide else torch.float32
+    t = [torch.from_numpy(a).to(cuda) for a in (counts, expected, bgp)]
+    rng = np.random.default_rng(5)
+    digits_np = rng.integers(0, 4, size=(6, W))
+    digits_np[1, :5] = 10          # N-heavy walks
+    digits_np[2, ::2] = rng.integers(4, 10, size=W // 2)
+    digits_np[4, 1:] = 10
+    digits = torch.from_numpy(digits_np).to(cuda)
+    active = torch.tensor([1, 0, 1, 0, 1, 1], dtype=torch.bool, device=cuda)
+    letters = torch.from_numpy(tcl.LETTER_TABLE).to(cuda)
+    sim = letters[:, 1:].to(torch.int64)
+    cand = sim[digits].reshape(6, -1)
+    valid = (cand >= 0).cpu().numpy()
+    dense = tcl._dense_aggregates(*t, W, both, agg_t)
+    want = dense(digits, torch.where(cand >= 0, cand, 0)).cpu().numpy()
+
+    rows = torch.zeros((4 ** W, 4), dtype=agg_t, device=cuda)
+    for g, x in enumerate(t):
+        rows[:, g] = x
+    out = torch.full((6, 3, tcl.MAXSIM * W), -7.0, dtype=agg_t, device=cuda)
+    ids = torch.zeros(1, dtype=torch.int64, device=cuda)
+    tcl.climb_aggregates(rows, digits, active, letters, out, ids, W, both)
+    got = out.cpu().numpy()
+    on = active.cpu().numpy()
+    assert (got[~on] == -7.0).all()
+    for s in np.flatnonzero(on):
+        v = valid[s]
+        np.testing.assert_array_equal(got[s, 0, v], want[s, 0, v])
+        np.testing.assert_allclose(got[s, 1:, v], want[s, 1:, v], rtol=1e-6)
+        assert (got[s][:, ~v] == 0).all()
+    # the rows read: every id of each set, its canonical ids under both
+    n = 0
+    masks = tcl.LETTER_TABLE[:, 0]
+    for s in np.flatnonzero(on):
+        for c in np.flatnonzero(valid[s]):
+            p, j = divmod(int(c), tcl.MAXSIM)
+            a = [int(masks[x]) for x in digits_np[s]]
+            a[p] = int(masks[tcl.SIM_TABLE[digits_np[s][p], j]])
+            sets = [a]
+            if both:
+                rc = [int(f"{m:04b}"[::-1], 2) for m in a[::-1]]
+                sets += [rc, [x & y for x, y in zip(a, rc)]]
+            for m in sets:
+                ids_m = _ids_of(m)
+                n += int((ids_m <= _rc(ids_m, W)).sum()) if both \
+                    else ids_m.size
+    assert int(ids) == n
 
 
 def _mafk_walk_args(argv, tmp_path):
@@ -697,6 +827,36 @@ def test_climb_graph_is_the_eager_step(W, strand, score, cuda, tmp_path,
     for k, x in graph.items():
         if torch.is_tensor(x):
             assert torch.equal(x, eager[k]), k
+
+
+@pytest.mark.parametrize("strand", ["BOTH", "PLUS"])
+@pytest.mark.parametrize("W", [10, 12])
+def test_climb_kernel_on_mafk_jobs(W, strand, cuda, tmp_path):
+    """On a MafK job's own climb inputs the kernel's walks are the dense
+    torch step's (on the card), two kernel runs give the same bits, every
+    step came from the kernel and its sets held ids."""
+    (counts, expected, bgp, seeds, length, both, st, n_seq, pseudo), kw = \
+        _mafk_walk_args(["-w", str(W), "--strand", strand], tmp_path)
+    ids = torch.as_tensor(np.asarray(seeds, np.int32), device=counts.device)
+
+    def walks(plain):
+        with PhaseTimer().activate() as rec:
+            out = tcl.walks_program(counts, expected, bgp, ids,
+                                    np.float32(n_seq), np.float32(pseudo),
+                                    length, both, st, plain=plain, **kw)
+        return out, rec.counters
+
+    first, counters = walks(False)
+    again, _ = walks(False)
+    dense, dense_counters = walks(True)
+    assert counters["climb.kernel_steps"] == first["n_steps"]
+    assert counters["climb.ids"] > 0
+    assert dense_counters["climb.kernel_steps"] == 0
+    assert dense_counters["climb.ids"] == 0
+    for k, x in first.items():
+        if torch.is_tensor(x):
+            assert torch.equal(x, again[k]), k
+    _same_walks(_walk_trace(first), _walk_trace(dense))
 
 
 def test_climb_graph_beside_a_nccl_group(cuda, tmp_path):

@@ -38,7 +38,8 @@ READERS = ("parse_ms", "untraced_ms", "seed_select_ms", "replay_ms",
            "climb_step_ms", "climb_steps_per_job", "em_rounds_per_job",
            "redundancy_ms", "host_syncs_per_job", "h2d_copies_per_job",
            "h2d_mb_per_job", "climb_graph_steps_per_job", "seed_sort_ms",
-           "seed_card_partitions_per_job", "em_kernel_rounds_per_job")
+           "seed_card_partitions_per_job", "em_kernel_rounds_per_job",
+           "climb_kernel_steps_per_job", "climb_ids_per_job")
 
 
 class _Kept(lu.PhaseTimer):
@@ -160,6 +161,7 @@ def test_report_is_the_last_output_and_short(engine_flag, tmp_path):
     # seeds' 0 where the host sorts the whole table, the climb's and EM's
     # 0 off CUDA)
     device = (["[COUNT] seeds.card_partitions", "[COUNT] climb.graph_steps",
+               "[COUNT] climb.kernel_steps", "[COUNT] climb.ids",
                "[COUNT] em.kernel_rounds"] if engine_flag == "tpu" else [])
     assert [ln.split(":")[0] for ln in lines if ln.startswith("[COUNT]")] \
         == ["[COUNT] syncs", "[COUNT] h2d.copies", "[COUNT] h2d.bytes"] \
@@ -216,6 +218,22 @@ def test_em_kernel_rounds_read_zero_off_cuda(tmp_path):
     rec = {"jobs": [job]}
     assert bench_run.reader(REPO, "em_kernel_rounds_per_job")(rec) == 0.0
     assert bench_run.reader(REPO, "em_rounds_per_job")(rec) > 0
+
+
+def test_climb_kernel_counters_read_zero_off_cuda(tmp_path):
+    """Off CUDA the climb takes the dense torch step: ``--timing`` prints
+    ``climb.kernel_steps`` and ``climb.ids`` as 0, and the benchmark's
+    readers read 0 while the job's climb ran steps."""
+    argv = [MAFK, "-w", "8", "--device", "cpu", "--engine", "tpu", "-o",
+            str(tmp_path / "o.meme"), "--timing"]
+    job = bench_run.run_job(cli.main, engine, argv, {}, "cpu")
+    assert job["rc"] == 0
+    assert "[COUNT] climb.kernel_steps: 0\n" in job["stderr"]
+    assert "[COUNT] climb.ids: 0\n" in job["stderr"]
+    rec = {"jobs": [job]}
+    for metric in ("climb_kernel_steps_per_job", "climb_ids_per_job"):
+        assert bench_run.reader(REPO, metric)(rec) == 0.0
+    assert bench_run.reader(REPO, "climb_steps_per_job")(rec) > 0
 
 
 @pytest.mark.parametrize("engine_flag", ["tpu", "exact"])
