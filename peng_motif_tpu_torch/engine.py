@@ -21,7 +21,8 @@ has already produced it):
                (ops/flat_tables); the seed z-sort's large partitions
                (ops/seed_sort.py).
   3. climb   — ops/climb.run_walks: all hill-climb walks in lockstep;
-               the host replays the seen set (climb.replay_walks).
+               the host replays the seen set and writes the climb's
+               rows in one native pass (climb.replay, csrc/replay.cpp).
   4. PWM     — :func:`adv_pwm_program`: letter-substitution sums and
                the reference's integer pseudo-count arithmetic.
   5. EM      — ops/em.em_optimize_flat, batched over motifs.
@@ -68,7 +69,7 @@ from .native import (
 )
 from .ops import flat_tables as ft
 from .ops import hybrid as hy
-from .ops.climb import ClimbOverflow, WalkTrace, replay_walks, run_walks
+from .ops.climb import ClimbOverflow, WalkTrace, replay, run_walks
 from .ops.em import em_optimize_flat
 from .ops.seed_sort import SeedPrefix, device_keep, sorted_prefix
 from .ops.stream_count import bg_offset, stream_fixup_pairs
@@ -370,28 +371,15 @@ def _motif_from_aggregates(digits, W: int, counts: int, expected,
 
 def _replay_climb(peng, params, trace: WalkTrace, selected, W: int
                   ) -> List[Motif]:
-    """Host seen-set replay over the device trajectories; reconstructs
-    the reference's climb stdout and the surviving motifs
+    """Host seen-set replay over the device trajectories; writes the
+    reference's climb stdout and returns the surviving motifs
     (reference: src/peng.cpp:437-541)."""
-    out = peng.out
-    outcomes = replay_walks(trace, selected, W)
-
-    best_motifs: List[Motif] = []
-    for base_pattern, oc in zip(selected, outcomes):
-        for digits, cnt, exp, score in oc.rows:
-            m = _motif_from_aggregates(digits, W, cnt, exp, 0.0)
-            peng._print_climb_row(m, F32(score))
-        if oc.emitted:
-            best = _motif_from_aggregates(
-                oc.final_digits, W, oc.final_counts,
-                oc.final_expected, oc.final_bgp)
-            best_motifs.append(best)
-            print(f"optimization: {base_id_to_string(base_pattern, W)} -> "
-                  f"{best.iupac_string()}\n", file=out)
-        else:
-            print(f"optimization: {base_id_to_string(base_pattern, W)} "
-                  f"removed\t\n", file=out)
-
+    rp = replay(trace, selected, W)
+    peng.out.write(rp.text)
+    best_motifs = [
+        _motif_from_aggregates(rp.final_digits[s], W, rp.final_counts[s],
+                               rp.final_expected[s], rp.final_bgp[s])
+        for s in np.flatnonzero(rp.emitted)]
     peng._print_motif_table(best_motifs)
     return best_motifs
 

@@ -5,9 +5,10 @@ The library is built from the port's own sources into
 whenever a source is newer than the library: ``csrc/pengnative.cpp`` (a
 byte-for-byte copy of the reference package's ``native/pengnative.cpp``,
 held equal by tests/test_torch_no_jax.py while both exist) and
-``csrc/hostcount.cpp`` (the port's own host count) and
+``csrc/hostcount.cpp`` (the port's own host count),
 ``csrc/seedsort.cpp`` (the host's part of the device engine's seed
-z-sort and its walk).  This module binds only the functions the port
+z-sort and its walk) and ``csrc/replay.cpp`` (the climb's seen-set
+replay and its text).  This module binds only the functions the port
 calls.
 
 The host side's parity with the reference binary rests on this library
@@ -31,7 +32,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
 _SRC = os.path.join(_PKG, "csrc", "pengnative.cpp")
 _SRCS = (_SRC, os.path.join(_PKG, "csrc", "hostcount.cpp"),
-         os.path.join(_PKG, "csrc", "seedsort.cpp"))
+         os.path.join(_PKG, "csrc", "seedsort.cpp"),
+         os.path.join(_PKG, "csrc", "replay.cpp"))
 _SO = os.path.join(BUILD_DIR, "libpengnative.so")
 
 _lock = threading.Lock()
@@ -40,6 +42,7 @@ _lib = None
 _c_f32p = ctypes.POINTER(ctypes.c_float)
 _c_i32p = ctypes.POINTER(ctypes.c_int32)
 _c_i64p = ctypes.POINTER(ctypes.c_int64)
+_c_i8p = ctypes.POINTER(ctypes.c_int8)
 _c_u8p = ctypes.POINTER(ctypes.c_uint8)
 _c_u32p = ctypes.POINTER(ctypes.c_uint32)
 _c_u64p = ctypes.POINTER(ctypes.c_uint64)
@@ -136,6 +139,16 @@ def _declare(lib) -> None:
                               ctypes.c_int, ctypes.c_float, ctypes.c_int32,
                               ctypes.c_int, ctypes.c_int, _c_i64p],
                              ctypes.c_int64),
+        # the device engine's climb replay (replay.cpp)
+        "climb_replay": ([ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
+                          ctypes.c_int64, _c_u8p, _c_i32p, _c_i64p, _c_f32p,
+                          _c_f32p, _c_i32p, _c_i64p, _c_f32p, _c_f32p,
+                          _c_i32p, _c_i64p, _c_f32p, _c_f32p, _c_f32p,
+                          _c_i64p, _c_i32p, ctypes.c_int, ctypes.c_char_p,
+                          _c_u8p, _c_i8p, _c_i64p, _c_f32p, _c_f32p,
+                          _c_i64p, _c_i8p, _c_i64p, _c_f32p, _c_f32p,
+                          ctypes.c_int64, _c_u8p, ctypes.c_int64, _c_i64p],
+                         ctypes.c_int64),
         # the exact engine (pipeline.Peng._process_exact, pattern_tables)
         "pack_codes_native": ([_c_u8p, ctypes.c_int64, ctypes.c_int64,
                                _c_u8p], None),
@@ -546,6 +559,84 @@ def seed_walk_prefix_native(ids, z, counts, w: int, z_thr: float,
     if n_sel < 0:
         raise MemoryError(f"seed_walk_prefix: no room for 4**{w} flags")
     return out[:n_sel]
+
+
+def climb_replay_native(trace, seed_ids, w: int, sim_table: np.ndarray,
+                        letters: str):
+    """The climb's seen-set replay and its text (see csrc/replay.cpp)
+    over a fetched walk trace (``ops/climb.WalkTrace``), one walk per
+    entry of ``seed_ids``.  Returns (text, emitted, final_digits,
+    final_counts, final_expected, final_bgp, row_start, row_digits,
+    row_counts, row_expected, row_score): the rows of seed s are
+    ``[row_start[s], row_start[s + 1])``."""
+    improved = np.ascontiguousarray(trace.improved, dtype=np.uint8)
+    acc_idx = np.ascontiguousarray(trace.acc_idx, dtype=np.int32)
+    T, S, R = acc_idx.shape
+    seeds = np.ascontiguousarray(seed_ids, dtype=np.int64).reshape(-1)
+    sim = np.ascontiguousarray(sim_table, dtype=np.int32)
+    step = {"chosen_idx": np.int32, "chosen_counts": np.int64,
+            "chosen_expected": np.float32, "chosen_bgp": np.float32,
+            "acc_n": np.int32}
+    row = {"acc_counts": np.int64, "acc_expected": np.float32,
+           "acc_score": np.float32}
+    seed = {"init_counts": np.int64, "init_expected": np.float32,
+            "init_bgp": np.float32, "init_score": np.float32}
+    a = {}
+    for names, shape in ((step, (T, S)), (row, (T, S, R)), (seed, (S,))):
+        for name, dtype in names.items():
+            # astype truncates the f32 counts as int() does
+            a[name] = np.ascontiguousarray(getattr(trace, name), dtype=dtype)
+            if a[name].shape != shape:
+                raise ValueError(f"climb_replay: {name} has shape "
+                                 f"{a[name].shape}, not {shape}")
+    if improved.shape != (T, S) or seeds.shape != (S,):
+        raise ValueError("climb_replay: the trace and the seeds disagree")
+    if sim.ndim != 2 or sim.shape[0] != len(letters):
+        raise ValueError("climb_replay: a similar-letter table per letter")
+    # every printed row is a seed's or an accepted one
+    row_cap = S + int(np.clip(a["acc_n"], 0, R).sum())
+    text_cap = row_cap * (w + 160) + S * (2 * w + 40)
+    emitted = np.empty(S, dtype=np.uint8)
+    final_digits = np.empty((S, w), dtype=np.int8)
+    final_counts = np.empty(S, dtype=np.int64)
+    final_expected = np.empty(S, dtype=np.float32)
+    final_bgp = np.empty(S, dtype=np.float32)
+    row_start = np.empty(S + 1, dtype=np.int64)
+    row_digits = np.empty((row_cap, w), dtype=np.int8)
+    row_counts = np.empty(row_cap, dtype=np.int64)
+    row_expected = np.empty(row_cap, dtype=np.float32)
+    row_score = np.empty(row_cap, dtype=np.float32)
+    text = np.empty(max(text_cap, 1), dtype=np.uint8)
+    text_len = ctypes.c_int64(0)
+    f32, i32, i64 = ctypes.c_float, ctypes.c_int32, ctypes.c_int64
+    n_rows = get_lib().climb_replay(
+        S, w, T, R, _ptr(improved, ctypes.c_uint8),
+        _ptr(a["chosen_idx"], i32), _ptr(a["chosen_counts"], i64),
+        _ptr(a["chosen_expected"], f32), _ptr(a["chosen_bgp"], f32),
+        _ptr(acc_idx, i32), _ptr(a["acc_counts"], i64),
+        _ptr(a["acc_expected"], f32), _ptr(a["acc_score"], f32),
+        _ptr(a["acc_n"], i32), _ptr(a["init_counts"], i64),
+        _ptr(a["init_expected"], f32), _ptr(a["init_bgp"], f32),
+        _ptr(a["init_score"], f32), _ptr(seeds, i64), _ptr(sim, i32),
+        sim.shape[1], letters.encode("ascii"),
+        _ptr(emitted, ctypes.c_uint8), _ptr(final_digits, ctypes.c_int8),
+        _ptr(final_counts, i64), _ptr(final_expected, f32),
+        _ptr(final_bgp, f32), _ptr(row_start, i64),
+        _ptr(row_digits, ctypes.c_int8), _ptr(row_counts, i64),
+        _ptr(row_expected, f32), _ptr(row_score, f32), row_cap,
+        _ptr(text, ctypes.c_uint8), text.shape[0], ctypes.byref(text_len))
+    if n_rows == -1:
+        raise OverflowError(f"climb_replay: 11**{w} IUPAC keys do not fit "
+                            "in 64 bits")
+    if n_rows == -3:
+        raise ValueError("climb_replay: a walk runs past the trace or names "
+                         "a candidate outside its tables")
+    if n_rows < 0:
+        raise RuntimeError("climb_replay: the rows outgrew their buffers")
+    return (text[:text_len.value].tobytes().decode("ascii"),
+            emitted.astype(bool), final_digits, final_counts, final_expected,
+            final_bgp, row_start, row_digits[:n_rows], row_counts[:n_rows],
+            row_expected[:n_rows], row_score[:n_rows])
 
 
 def select_patterns_walk_native(order, z, counts, w: int, z_thr: float,

@@ -10,13 +10,19 @@ background aggregates within 1e-6 relative (f32 tree sums in another
 order); scores within 2e-6 relative + 2e-5 absolute.
 """
 
+import io
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from peng_motif_tpu import engine_tpu as jengine
+from peng_motif_tpu import pipeline as jpipeline
 from peng_motif_tpu.ops import climb as jcl
+from peng_motif_tpu_torch import engine as tengine
+from peng_motif_tpu_torch import pipeline as tpipeline
 from peng_motif_tpu_torch.ops import climb as tcl
 from peng_motif_tpu_torch.ops import flat_tables as tft
 from peng_motif_tpu_torch.utils.logging_utils import PhaseTimer
@@ -238,6 +244,36 @@ def test_replay_outcomes_match_reference(both, score_type):
             assert ra[1] == rb[1]
             np.testing.assert_allclose(ra[2], rb[2], rtol=1e-6)
             np.testing.assert_allclose(ra[3], rb[3], rtol=2e-6, atol=2e-5)
+
+
+def _climb_text(pipeline, engine, climb, trace, seeds, W):
+    """One package's climb section (engine._replay_climb) on a trace."""
+    peng = pipeline.Peng.__new__(pipeline.Peng)
+    peng.out = io.StringIO()
+    engine._replay_climb(peng, None, climb.WalkTrace(*trace), seeds, W)
+    return peng.out.getvalue()
+
+
+@pytest.mark.parametrize("score_type", [0, 2])
+@pytest.mark.parametrize("both", [True, False], ids=["both", "plus"])
+@pytest.mark.parametrize("W", [4, 6, 8, 10])
+def test_replay_text_matches_reference(W, both, score_type):
+    """The native replay's climb text, byte for byte the reference
+    engine's, on the port's walks; the counter climb.replay_rows reads
+    the rows printed."""
+    counts, expected, bgp, seeds, n_seq = walk_inputs(W, seed=W, n_seeds=10)
+    seeds = np.concatenate([seeds, seeds[:1], seeds[1:2] ^ 1])
+    trace = tcl.run_walks(
+        torch.from_numpy(counts), torch.from_numpy(expected),
+        torch.from_numpy(bgp), seeds, W, both, score_type, n_seq,
+        n_seq // 200)
+    want = _climb_text(jpipeline, jengine, jcl, trace, seeds, W)
+    with PhaseTimer().activate() as recorder:
+        got = _climb_text(tpipeline, tengine, tcl, trace, seeds, W)
+    assert got == want
+    assert "removed" in got
+    rows = sum(line.startswith("\t") for line in got.splitlines())
+    assert recorder.counters["climb.replay_rows"] == rows
 
 
 def test_argmin_tie_takes_first_minimum():

@@ -17,6 +17,7 @@ import io
 from types import SimpleNamespace
 
 import numpy as np
+import pytest
 
 import conftest  # noqa: F401
 
@@ -49,11 +50,10 @@ PORT = SimpleNamespace(
 PACKAGES = (REFERENCE, PORT)
 
 W = 4
-POW11 = 11 ** np.arange(W, dtype=np.int64)
 
 
 def iupac_id(digits):
-    return int((np.asarray(digits, dtype=np.int64) * POW11).sum())
+    return sum(int(d) * 11 ** p for p, d in enumerate(digits))
 
 
 # IUPAC digit codes: A=0 C=1 G=2 T=3 S=4 W=5 R=6 Y=7 M=8 K=9 N=10
@@ -125,7 +125,7 @@ def _tiny_peng(pkg, out):
                              stdout=out)
 
 
-def _replay(pkg, trace, seeds):
+def _replay(pkg, trace, seeds, w=W):
     """One package's replay of a scripted trace: the walks' outcomes as
     plain values, the emitted motifs' pattern ids and the climb's stdout."""
     trace = pkg.climb.WalkTrace(*trace)
@@ -134,18 +134,18 @@ def _replay(pkg, trace, seeds):
          float(oc.final_expected), float(oc.final_bgp),
          [(iupac_id(r[0]), int(r[1]), float(r[2]), float(r[3]))
           for r in oc.rows])
-        for oc in pkg.climb.replay_walks(trace, seeds, W)]
+        for oc in pkg.climb.replay_walks(trace, seeds, w)]
     out = io.StringIO()
     motifs = pkg.engine._replay_climb(_tiny_peng(pkg, out), None, trace,
-                                      seeds, W)
+                                      seeds, w)
     return SimpleNamespace(outcomes=outcomes,
                            motifs=[m.pattern_id for m in motifs],
                            text=out.getvalue())
 
 
-def _replay_both(trace, seeds):
+def _replay_both(trace, seeds, w=W):
     """The port's replay, after holding it equal to the reference's."""
-    ref, port = (_replay(pkg, trace, seeds) for pkg in PACKAGES)
+    ref, port = (_replay(pkg, trace, seeds, w) for pkg in PACKAGES)
     assert port.outcomes == ref.outcomes
     assert port.motifs == ref.motifs
     assert port.text == ref.text
@@ -204,6 +204,158 @@ def test_unimproved_walk_emits_its_seed_once():
     first, second = _replay_both(trace, seeds).outcomes
     assert first[0] and first[1] == AAAA
     assert not second[0]
+
+
+def test_seed_killed_on_its_first_step():
+    """A walk whose first chosen mutant is already in the seen set dies
+    there, after printing its seed row and that step's accepted rows."""
+    seeds = [0, 0]
+    trace = scripted_trace({WAAA: 0.5}, {0: 1.0}, seeds)
+    first, second = _replay_both(trace, seeds).outcomes
+    assert first[0] and first[1] == WAAA
+    # WAAA entered the seen set when the first walk emitted it
+    assert not second[0] and second[1] == WAAA and len(second[5]) == 2
+
+
+def _walk_back(trace, s):
+    """Seed s's walk from AAAA to MAAA, then a second step onto WAAA, a
+    candidate of its first step: the device's trace of a walk the seen
+    set stops on its own earlier candidates."""
+    trace = trace._replace(**{k: getattr(trace, k).copy() for k in (
+        "improved", "chosen_idx", "chosen_expected", "chosen_score",
+        "acc_idx", "acc_expected", "acc_score", "acc_n")})
+    w_of_m = IUPAC_SIMILAR[8].index(5)          # W among M's letters
+    trace.improved[1, s] = True
+    trace.chosen_idx[1, s] = trace.acc_idx[1, s, 0] = w_of_m
+    trace.acc_n[1, s] = 1
+    for k in ("chosen_expected", "chosen_score"):
+        getattr(trace, k)[1, s] = 0.25
+    trace.acc_expected[1, s, 0] = trace.acc_score[1, s, 0] = 0.25
+    return trace
+
+
+def test_every_walk_removed():
+    """Walks that end on a pattern of the seen set are all removed: no
+    motif, the table's header alone."""
+    seeds = [0, 0]
+    trace = scripted_trace({MAAA: 0.5}, {0: 1.0}, seeds)
+    trace = _walk_back(_walk_back(trace, 0), 1)
+    got = _replay_both(trace, seeds)
+    assert [oc[0] for oc in got.outcomes] == [False, False]
+    assert [oc[1] for oc in got.outcomes] == [WAAA, WAAA]
+    assert got.motifs == []
+    assert got.text.count("removed") == 2
+
+
+def test_zero_expected_prints_inf_enrichment(monkeypatch):
+    """A climb row whose expected count is 0 prints its enrichment as
+    "inf".  The reference computes a z-score for every row, which a zero
+    expected count makes a ZeroDivisionError; no row prints it, so the
+    reference's z here reads inf at a zero expected count."""
+    zscore = ref_motif.numerics.zscore_from_sums
+    monkeypatch.setattr(
+        ref_motif.numerics, "zscore_from_sums",
+        lambda n, e: np.float32(np.inf) if e == 0 else zscore(n, e))
+    scores = {WAAA: 0.8, RAAA: 0.3}
+    trace = scripted_trace(scores, {0: 1.0}, [0])
+    trace.acc_expected[0, 0, 0] = 0.0      # the WAAA row, not the end
+    trace.acc_expected[0, 0, 1] = -0.0     # the RAAA row: -0.0 is false
+    got = _replay_both(trace, [0])
+    assert got.text.count("\t  inf\t") == 2
+    assert got.motifs == [RAAA]
+
+
+def test_nan_prints_as_python_does():
+    """A NaN enrichment or score prints "nan" whatever its sign bit."""
+    scores = {WAAA: 0.8, RAAA: 0.3}
+    trace = scripted_trace(scores, {0: 1.0}, [0])
+    nan = -np.float32(np.nan)
+    assert np.signbit(nan)
+    trace.acc_expected[0, 0, 0] = nan       # the WAAA row's enrichment
+    trace.acc_score[0, 0, 0] = nan
+    # NaN rows differ from themselves, so the outcomes compare as text
+    ref, got = (_replay(pkg, trace, [0]) for pkg in PACKAGES)
+    assert got.text == ref.text and got.motifs == ref.motifs == [RAAA]
+    assert "\t  nan\t       nan\n" in got.text and "-nan" not in got.text
+
+
+def test_counts_past_float32_integers():
+    """Counts of 2**24 and more (the f64 chain's int64 trace) print
+    exactly; the enrichment divides their float32 rounding."""
+    scores = {WAAA: 0.8, RAAA: 0.3}
+    trace = scripted_trace(scores, {0: 1.0}, [0])
+    acc_counts = np.zeros(trace.acc_counts.shape, np.int64)
+    acc_counts[..., 0], acc_counts[..., 1] = 2 ** 24 + 1, 2 ** 31 - 1
+    trace = trace._replace(
+        init_counts=np.full(1, 2 ** 24 + 3, np.int64), acc_counts=acc_counts,
+        chosen_counts=np.full(trace.chosen_counts.shape, 123_456_789,
+                              np.int64))
+    got = _replay_both(trace, [0])
+    assert "\t  16777219\t" in got.text and "\t2147483647\t" in got.text
+    assert got.outcomes[0][2] == 123_456_789
+
+
+def random_trace(w, seed, steps=10) -> tuple:
+    """(trace, seeds): walks of valid moves at width w, as the lockstep
+    device program records them, with random aggregates and scores.  A
+    repeated seed and its neighbours walk into each other's seen sets;
+    moves favour the first positions so that walks meet."""
+    rng = np.random.default_rng(seed)
+    base = [int(x) for x in rng.integers(0, 4 ** w, size=5)]
+    seeds = base + [base[0], base[1] ^ 1, base[2] ^ 2, base[0] ^ 3, base[3]]
+    S = len(seeds)
+    tr = scripted_trace({}, {x: 1.0 for x in seeds}, seeds, steps=steps)
+    tr = tr._replace(
+        acc_counts=rng.integers(0, 2 ** 31, size=tr.acc_idx.shape),
+        chosen_counts=np.zeros((steps, S), np.int64),
+        init_counts=rng.integers(0, 2 ** 31, size=S),
+        init_expected=rng.uniform(0.5, 5e4, S).astype(np.float32),
+        init_bgp=rng.uniform(1e-9, 1e-3, S).astype(np.float32))
+    for s, seed_id in enumerate(seeds):
+        digits = [(seed_id >> (2 * p)) & 3 for p in range(w)]
+        score = np.float32(rng.normal())
+        tr.init_score[s] = score
+        for t in range(int(rng.integers(0, steps))):
+            picks = sorted({(int(rng.integers(0, min(w, 3))),
+                             int(rng.integers(0, 4)))
+                            for _ in range(int(rng.integers(1, 4)))})
+            for k, (p, j) in enumerate(picks):
+                score = np.float32(score - rng.uniform(0.01, 1.0))
+                tr.acc_idx[t, s, k] = p * MAXSIM + j
+                tr.acc_expected[t, s, k] = rng.uniform(0.5, 5e4)
+                tr.acc_score[t, s, k] = score
+            tr.acc_n[t, s] = len(picks)
+            k = len(picks) - 1
+            tr.improved[t, s] = True
+            tr.chosen_idx[t, s] = tr.acc_idx[t, s, k]
+            tr.chosen_counts[t, s] = tr.acc_counts[t, s, k]
+            tr.chosen_expected[t, s] = tr.acc_expected[t, s, k]
+            tr.chosen_score[t, s] = tr.acc_score[t, s, k]
+            tr.chosen_bgp[t, s] = rng.uniform(1e-9, 1e-3)
+            p, j = picks[-1]
+            digits[p] = IUPAC_SIMILAR[digits[p]][j]
+    return tr, seeds
+
+
+@pytest.mark.parametrize("w", range(4, 13))
+def test_random_walks_match_reference(w):
+    """Random walks at every width of the device engine: outcomes, motifs
+    and the climb's text byte for byte."""
+    trace, seeds = random_trace(w, seed=w)
+    got = _replay_both(trace, seeds, w)
+    emitted = [oc[0] for oc in got.outcomes]
+    assert any(emitted) and not all(emitted)
+
+
+def test_widest_key_replays_and_wider_raises():
+    """Keys are base-11 in 64 bits: W = 18 (11**18 < 2**63) replays as the
+    reference does; at W = 19 the port raises rather than wrap."""
+    seeds = [0, 3]
+    trace = scripted_trace({}, {0: 1.0, 3: 1.0}, seeds)
+    got = _replay_both(trace, seeds, 18)
+    assert got.motifs == [0, 3]
+    with pytest.raises(OverflowError, match="11\\*\\*19"):
+        port_climb.replay_walks(trace, seeds, 19)
 
 
 class FakeMotif:

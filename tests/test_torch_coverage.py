@@ -171,6 +171,8 @@ RENAMED = {
         "ops/stream_count.py::stream_shard_counts",
     "ops/stream_count.py:stream_count_device_fused2":
         "ops/stream_count.py::stream_shard_counts",
+    "ops/climb.py:_key": "csrc/replay.cpp::climb_replay",
+    "ops/climb.py:_candidate_keys": "csrc/replay.cpp::climb_replay",
     "ops/pallas_hist.py:histogram_supported": "ops/histogram.py::plan",
     "ops/pallas_hist.py:use_mxu_histogram": "ops/histogram.py::plan",
     "ops/pallas_hist.py:_variant": "ops/histogram.py::plan",

@@ -157,12 +157,13 @@ def test_report_is_the_last_output_and_short(engine_flag, tmp_path):
     assert all(ln.startswith(("[TIMING] ", "[COUNT] ")) for ln in lines)
     kinds = [ln.split()[0] for ln in lines]
     assert kinds == sorted(kinds, key=lambda k: k != "[TIMING]")
-    # the device engine's seeds, climb and EM add their counters (the
-    # seeds' 0 where the host sorts the whole table, the climb's and EM's
-    # 0 off CUDA)
+    # the device engine's seeds, climb, replay and EM add their counters
+    # (the seeds' 0 where the host sorts the whole table, the climb's and
+    # EM's 0 off CUDA)
     device = (["[COUNT] seeds.card_partitions", "[COUNT] climb.graph_steps",
                "[COUNT] climb.kernel_steps", "[COUNT] climb.ids",
-               "[COUNT] em.kernel_rounds"] if engine_flag == "tpu" else [])
+               "[COUNT] climb.replay_rows", "[COUNT] em.kernel_rounds"]
+              if engine_flag == "tpu" else [])
     assert [ln.split(":")[0] for ln in lines if ln.startswith("[COUNT]")] \
         == ["[COUNT] syncs", "[COUNT] h2d.copies", "[COUNT] h2d.bytes"] \
         + device
